@@ -1,0 +1,147 @@
+"""The port stands without JAX and never falls back silently.
+
+Each check runs in a fresh interpreter so that nothing this test process
+imported (JAX included) leaks into what is checked.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+import tempfile
+import textwrap
+
+import pytest
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# what the port must not have loaded: JAX, flax, or any module of the JAX package
+_NO_JAX = """
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in
+                        ("jax", "flax", "tf_eager_object_detection_tpu"))
+        assert not leaked, leaked
+"""
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    # no visible GPU, no CUDA toolkit and an empty kernel build directory,
+    # whatever the machine has
+    with tempfile.TemporaryDirectory() as build_dir:
+        env = dict(os.environ, PYTHONPATH=_ROOT, CUDA_VISIBLE_DEVICES="",
+                   CUDA_HOME=os.path.join(_ROOT, "no-such-cuda"), PATH="/usr/bin:/bin",
+                   TF_EAGER_OD_TORCH_BUILD_DIR=build_dir)
+        return subprocess.run(
+            [sys.executable, "-c", textwrap.dedent(code)],
+            cwd=_ROOT, env=env, capture_output=True, text=True, timeout=300,
+        )
+
+
+def test_port_predicts_on_cpu_without_importing_jax():
+    proc = _run(
+        """
+        import sys
+        import numpy as np
+        from tf_eager_object_detection_tpu_torch.config.config_factory import config_factory
+        from tf_eager_object_detection_tpu_torch.models.model_factory import model_factory
+        from tf_eager_object_detection_tpu_torch.evaluation.batched_inference import (
+            batched_im_detect,
+        )
+        from tf_eager_object_detection_tpu_torch.ops.kernels import build, nms_cuda
+
+        cfg = dict(config_factory("pascal", "faster_rcnn"))
+        cfg.update(rpn_proposal_test_pre_nms_sample_number=100,
+                   rpn_proposal_test_after_nms_sample_number=20,
+                   max_objects_per_image=5, max_objects_per_class_per_image=5)
+        det = model_factory("faster_rcnn", "resnet50", cfg, device="cpu")
+        img = np.random.RandomState(0).randn(64, 96, 3).astype(np.float32)
+        out = det.predict(img, [60, 90])
+        assert out.boxes.shape == (5, 4) and bool(out.valid.any())
+        items = [(img, np.array([60, 90]), 1.0)] * 3
+        got = list(batched_im_detect(det, items, batch_size=2))
+        assert sorted(i for i, _, _ in got) == [0, 1, 2]
+        assert nms_cuda.NMS_KERNEL.launches == 0  # CPU tensors take the plain version
+""" + _NO_JAX + """
+        print("OK")
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_cuda_without_a_gpu_raises():
+    proc = _run(
+        """
+        import torch
+        assert not torch.cuda.is_available()
+        from tf_eager_object_detection_tpu_torch.config.config_factory import config_factory
+        from tf_eager_object_detection_tpu_torch.models.model_factory import model_factory
+        try:
+            model_factory("faster_rcnn", "resnet50", config_factory("pascal", "faster_rcnn"),
+                          device="cuda")
+        except RuntimeError as e:
+            assert "cuda" in str(e).lower(), e
+            print("RAISED")
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "RAISED"
+
+
+def test_kernel_wrapper_imports_without_nvcc_and_refuses_cpu_tensors():
+    proc = _run(
+        """
+        import torch
+        from tf_eager_object_detection_tpu_torch.ops.kernels.nms_cuda import NMS_KERNEL
+        try:
+            NMS_KERNEL(torch.zeros(1, 8, 4), torch.ones(1, 8, dtype=torch.bool), 0.5, 4)
+        except ValueError as e:
+            assert "CUDA" in str(e)
+        else:
+            raise SystemExit("CPU tensors reached the CUDA kernel")
+        try:
+            NMS_KERNEL.load()
+        except RuntimeError as e:
+            assert "nvcc not found" in str(e), e
+            print("NO-NVCC")
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "NO-NVCC"
+    assert not os.path.exists(os.path.join(_ROOT, "no-such-cuda"))
+
+
+def test_chip_smoke_imports_only_the_port():
+    proc = _run(
+        """
+        import sys
+        import chip_smoke
+        """ + _NO_JAX + """
+        assert "tf_eager_object_detection_tpu_torch.models.faster_rcnn" in sys.modules
+        print("OK")
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "OK"
+
+
+def _port_sources():
+    pkg = os.path.join(_ROOT, "tf_eager_object_detection_tpu_torch")
+    paths = [os.path.join(_ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(pkg):
+        paths += [os.path.join(d, f) for f in sorted(files) if f.endswith(".py")]
+    return sorted(paths)
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, _ROOT))
+def test_no_import_of_jax_or_the_jax_package(path):
+    """Every import statement, including those inside functions."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    bad = [n for n in names if n.split(".")[0] in ("jax", "flax", "tf_eager_object_detection_tpu")]
+    assert not bad, bad

@@ -1,0 +1,107 @@
+"""ResNet v1 C4 backbone + conv5 RoI head
+(port of `tf_eager_object_detection_tpu/models/backbones/resnet.py`).
+
+Keras-style bottlenecks with the stride on the first 1x1 conv; conv1 7x7/2
+after an explicit (3, 3) zero pad, then a 3x3/2 max pool over a -inf pad of
+1; every BatchNorm frozen. Submodules carry the keras/flax names
+(`conv2_block1_1_conv`, ...) so the weight bridge is a name map. Public
+inputs and outputs are NHWC; the convolutions run in NCHW.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from tf_eager_object_detection_tpu_torch.models.layers import FrozenBatchNorm, SameConv2d
+
+__all__ = ["ResNetBackbone", "ResNetRoiHead", "RESNET_DEPTH_BLOCKS"]
+
+# blocks per (conv3, conv4) stack; conv2 and conv5 always have 3 blocks
+RESNET_DEPTH_BLOCKS = {50: (4, 6), 101: (4, 23), 152: (8, 36)}
+
+
+def _bottleneck_forward(mod: nn.Module, x: torch.Tensor, prefix: str, conv_shortcut: bool):
+    """1x1(stride) -> 3x3 SAME -> 1x1, each with a frozen BN; residual + relu.
+
+    The convs live on `mod` under their flax names (`{prefix}_{i}_conv`).
+    """
+
+    def conv_bn(i, t):
+        return getattr(mod, f"{prefix}_{i}_bn")(getattr(mod, f"{prefix}_{i}_conv")(t))
+
+    shortcut = conv_bn(0, x) if conv_shortcut else x
+    y = torch.relu(conv_bn(1, x))
+    y = torch.relu(conv_bn(2, y))
+    y = conv_bn(3, y)
+    return torch.relu(shortcut + y)
+
+
+def _add_bottleneck(mod: nn.Module, prefix: str, in_ch: int, filters: int,
+                    stride: int, conv_shortcut: bool) -> None:
+    if conv_shortcut:
+        setattr(mod, f"{prefix}_0_conv", SameConv2d(in_ch, 4 * filters, 1, stride))
+        setattr(mod, f"{prefix}_0_bn", FrozenBatchNorm(4 * filters))
+    layers = [(in_ch, filters, 1, stride), (filters, filters, 3, 1), (filters, 4 * filters, 1, 1)]
+    for i, (cin, cout, k, s) in enumerate(layers, start=1):
+        setattr(mod, f"{prefix}_{i}_conv", SameConv2d(cin, cout, k, s))
+        setattr(mod, f"{prefix}_{i}_bn", FrozenBatchNorm(cout))
+
+
+def _add_stack(mod: nn.Module, plan: list, name: str, in_ch: int, filters: int,
+               blocks: int, stride1: int) -> int:
+    """Registers one stack's convs on `mod`, appends (prefix, shortcut) to plan."""
+    for i in range(1, blocks + 1):
+        prefix = f"{name}_block{i}"
+        first = i == 1
+        _add_bottleneck(mod, prefix, in_ch, filters, stride1 if first else 1, first)
+        plan.append((prefix, first))
+        in_ch = 4 * filters
+    return in_ch
+
+
+class ResNetBackbone(nn.Module):
+    """Image [B, H, W, 3] (caffe BGR, NHWC) -> conv4 features [B, H/16, W/16, 1024] NHWC."""
+
+    def __init__(self, depth: int = 50):
+        super().__init__()
+        if depth not in RESNET_DEPTH_BLOCKS:
+            raise ValueError(f"unknown resnet depth {depth}")
+        b3, b4 = RESNET_DEPTH_BLOCKS[depth]
+        self.depth = depth
+        self.conv1_conv = nn.Conv2d(3, 64, 7, stride=2, padding=3)
+        self.conv1_bn = FrozenBatchNorm(64)
+        self.pool = nn.MaxPool2d(3, stride=2, padding=1)  # pads with -inf
+        self._plan: list = []
+        ch = _add_stack(self, self._plan, "conv2", 64, 64, 3, 1)
+        ch = _add_stack(self, self._plan, "conv3", ch, 128, b3, 2)
+        _add_stack(self, self._plan, "conv4", ch, 256, b4, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2).contiguous()
+        x = torch.relu(self.conv1_bn(self.conv1_conv(x)))
+        x = self.pool(x)
+        for prefix, conv_shortcut in self._plan:
+            x = _bottleneck_forward(self, x, prefix, conv_shortcut)
+        return x.permute(0, 2, 3, 1)
+
+
+class ResNetRoiHead(nn.Module):
+    """RoI features [N, 7, 7, 1024] NHWC -> (scores [N, C], deltas [N, 4C]).
+
+    conv5 stack at stride 1, global average pool, two dense heads.
+    """
+
+    def __init__(self, num_classes: int = 21):
+        super().__init__()
+        self._plan: list = []
+        _add_stack(self, self._plan, "conv5", 1024, 512, 3, 1)
+        self.roi_head_score = nn.Linear(2048, num_classes)
+        self.roi_head_bboxes = nn.Linear(2048, 4 * num_classes)
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        x = x.permute(0, 3, 1, 2).contiguous()
+        for prefix, conv_shortcut in self._plan:
+            x = _bottleneck_forward(self, x, prefix, conv_shortcut)
+        x = x.mean(dim=(2, 3))
+        return self.roi_head_score(x), self.roi_head_bboxes(x)
