@@ -34,7 +34,7 @@ def flat_params():
 
 
 def test_every_leaf_consumed_once_and_transposed(flat_params):
-    det = model_factory("faster_rcnn", "resnet50", _small_config())
+    det = model_factory("faster_rcnn", "resnet50", _small_config(), device="cpu")
     assert len(flat_params) == len(det.state_dict())
     load_jax_params(det, flat_params)  # raises on any unused or missing leaf
 
@@ -59,7 +59,9 @@ def test_state_dict_names_and_shapes_match_flax(backbone):
     converted = state_dict_from_jax(
         {k: np.zeros(v.shape, np.float32) for k, v in shapes.items()}
     )
-    expected = model_factory("faster_rcnn", backbone, _small_config()).state_dict()
+    expected = model_factory(
+        "faster_rcnn", backbone, _small_config(), device="cpu"
+    ).state_dict()
     assert converted.keys() == expected.keys()
     for name, tensor in converted.items():
         assert tensor.shape == expected[name].shape, name
@@ -91,7 +93,7 @@ def test_save_params_npz_loads(flat_params, tmp_path):
         node[leaf] = value
     path = tmp_path / "params.npz"
     save_params(str(path), params)
-    det = model_factory("faster_rcnn", "resnet50", _small_config(), seed=5)
+    det = model_factory("faster_rcnn", "resnet50", _small_config(), device="cpu", seed=5)
     load_jax_params(det, path)
     np.testing.assert_array_equal(
         det.rpn_head.rpn_bbox_conv.bias.detach().numpy(), flat_params["rpn_head/rpn_bbox_conv/bias"]
@@ -99,7 +101,7 @@ def test_save_params_npz_loads(flat_params, tmp_path):
 
 
 def test_unused_missing_or_misshapen_leaves_raise(flat_params):
-    det = model_factory("faster_rcnn", "resnet50", _small_config())
+    det = model_factory("faster_rcnn", "resnet50", _small_config(), device="cpu")
     before = det.rpn_head.rpn_first_conv.weight.clone()
     extra = dict(flat_params, **{"extractor/conv9_conv/kernel": np.zeros((1, 1, 1, 1), np.float32)})
     with pytest.raises(KeyError, match="conv9_conv"):

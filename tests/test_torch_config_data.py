@@ -21,10 +21,12 @@ def test_faster_rcnn_presets_match(data_type):
 
 
 def test_config_factory_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_config.config_factory("pascal", "fpn")
-    with pytest.raises(ValueError):
-        torch_config.config_factory("imagenet", "faster_rcnn")
+    """What the JAX factory has no preset for, the port refuses alike."""
+    for data_type, model_type in [("coco", "fpn"), ("imagenet", "faster_rcnn"), ("pascal", "ssd")]:
+        with pytest.raises(ValueError):
+            jax_config.config_factory(data_type, model_type)
+        with pytest.raises(ValueError):
+            torch_config.config_factory(data_type, model_type)
 
 
 def _image(h, w, seed):

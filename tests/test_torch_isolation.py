@@ -68,6 +68,59 @@ def test_port_predicts_on_cpu_without_importing_jax():
     assert proc.stdout.strip().endswith("OK")
 
 
+def test_fpn_predicts_on_cpu_without_importing_jax():
+    proc = _run(
+        """
+        import sys
+        import numpy as np
+        from tf_eager_object_detection_tpu_torch.config.config_factory import config_factory
+        from tf_eager_object_detection_tpu_torch.models.model_factory import model_factory
+        from tf_eager_object_detection_tpu_torch.evaluation.batched_inference import (
+            batched_im_detect,
+        )
+        from tf_eager_object_detection_tpu_torch.ops.kernels import nms_cuda, roi_align_cuda
+
+        cfg = dict(config_factory("pascal", "fpn"))
+        cfg.update(rpn_proposal_test_pre_nms_sample_number=100,
+                   rpn_proposal_test_after_nms_sample_number=20,
+                   max_objects_per_image=5, max_objects_per_class_per_image=5)
+        det = model_factory("fpn", "resnet50", cfg, device="cpu")
+        img = np.random.RandomState(0).randn(64, 128, 3).astype(np.float32)
+        out = det.predict(img, [60, 120])
+        assert out.boxes.shape == (5, 4) and bool(out.valid.any())
+        items = [(img, np.array([60, 120]), 1.0)] * 3
+        got = list(batched_im_detect(det, items, batch_size=2))
+        assert sorted(i for i, _, _ in got) == [0, 1, 2]
+        # CPU tensors take the plain versions
+        assert nms_cuda.NMS_KERNEL.launches == 0
+        assert roi_align_cuda.ROI_ALIGN_KERNEL.launches == 0
+""" + _NO_JAX + """
+        print("OK")
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+@pytest.mark.parametrize("model_type", ["faster_rcnn", "fpn"])
+def test_default_device_is_cuda_and_raises_without_one(model_type):
+    proc = _run(
+        f"""
+        import torch
+        assert not torch.cuda.is_available()
+        from tf_eager_object_detection_tpu_torch.config.config_factory import config_factory
+        from tf_eager_object_detection_tpu_torch.models.model_factory import model_factory
+        try:
+            model_factory("{model_type}", "resnet50", config_factory("pascal", "{model_type}"))
+        except RuntimeError as e:
+            assert "cuda" in str(e).lower(), e
+            print("RAISED")
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "RAISED"
+
+
 def test_cuda_without_a_gpu_raises():
     proc = _run(
         """
@@ -110,6 +163,35 @@ def test_kernel_wrapper_imports_without_nvcc_and_refuses_cpu_tensors():
     assert not os.path.exists(os.path.join(_ROOT, "no-such-cuda"))
 
 
+def test_roi_align_wrapper_imports_without_nvcc_and_refuses_cpu_tensors():
+    proc = _run(
+        """
+        import torch
+        from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_cuda import (
+            ROI_ALIGN_KERNEL,
+        )
+        planes = [torch.zeros(1, 8, 8, 4), torch.zeros(1, 4, 4, 4)]
+        args = (planes, torch.zeros(1, 3, 4), torch.zeros(1, 3, dtype=torch.long),
+                torch.ones(1, 3, dtype=torch.bool), torch.full((1,), 30.0),
+                torch.full((1,), 30.0), 14, (4, 8))
+        try:
+            ROI_ALIGN_KERNEL(*args)
+        except ValueError as e:
+            assert "CUDA" in str(e)
+        else:
+            raise SystemExit("CPU tensors reached the CUDA kernel")
+        assert ROI_ALIGN_KERNEL.launches == 0
+        try:
+            ROI_ALIGN_KERNEL.load()
+        except RuntimeError as e:
+            assert "nvcc not found" in str(e), e
+            print("NO-NVCC")
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "NO-NVCC"
+
+
 def test_chip_smoke_imports_only_the_port():
     proc = _run(
         """
@@ -117,6 +199,8 @@ def test_chip_smoke_imports_only_the_port():
         import chip_smoke
         """ + _NO_JAX + """
         assert "tf_eager_object_detection_tpu_torch.models.faster_rcnn" in sys.modules
+        assert "tf_eager_object_detection_tpu_torch.models.fpn" in sys.modules
+        assert "tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_cuda" in sys.modules
         print("OK")
         """
     )

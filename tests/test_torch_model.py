@@ -50,7 +50,7 @@ def pair():
     flat["rpn_head/rpn_score_conv/kernel"] *= RPN_SCORE_SCALE
     flat["roi_head/roi_head_score/kernel"] *= ROI_SCORE_SCALE
     params = jax.tree_util.tree_map(jnp.asarray, unflatten_dict(flat, sep="/"))
-    tdet = model_factory("faster_rcnn", "resnet50", cfg)
+    tdet = model_factory("faster_rcnn", "resnet50", cfg, device="cpu")
     load_jax_params(tdet, flat)
     return jdet, params, tdet
 

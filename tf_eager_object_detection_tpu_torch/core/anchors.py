@@ -1,7 +1,8 @@
-"""Faster R-CNN anchors (port of `tf_eager_object_detection_tpu/core/anchors.py`).
+"""Anchors (port of `tf_eager_object_detection_tpu/core/anchors.py`).
 
-`generate_anchor_base` and `shift_anchor_base` are plain numpy, re-written
-here because the JAX module imports `jax.numpy` at its top.
+`generate_anchor_base`, `shift_anchor_base` (Faster R-CNN) and
+`make_level_anchors` (FPN) are plain numpy, re-written here because the JAX
+module imports `jax.numpy` at its top.
 
 Ordering contract (must match the RPN head reshape): cell-major (row-major
 over (y, x)), anchor-minor — anchors[(y * grid_w + x) * A + a].
@@ -12,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["generate_anchor_base", "shift_anchor_base", "valid_anchor_mask"]
+__all__ = ["generate_anchor_base", "shift_anchor_base", "make_level_anchors", "valid_anchor_mask"]
 
 
 def _whctrs(anchor):
@@ -66,6 +67,30 @@ def shift_anchor_base(
         (-1, 1, 4)
     )
     return anchors.reshape((-1, 4)).astype(np.float32)
+
+
+def make_level_anchors(
+    base_anchor_size: float, scales, ratios, grid_h: int, grid_w: int, stride: int
+) -> np.ndarray:
+    """FPN anchors for one pyramid level -> [grid_h*grid_w*A, 4] float32 xyxy.
+
+    The reference's `make_anchors` with its `enum_ratios` swap: per (ratio,
+    scale) the box is w = base*scale*sqrt(ratio), h = base*scale/sqrt(ratio),
+    centred at (x*stride, y*stride). Order within a cell: ratio-major,
+    scale-minor; cells row-major, as in `shift_anchor_base`.
+    """
+    scales = np.asarray(scales, np.float32)
+    ratios = np.asarray(ratios, np.float32)
+    sizes = base_anchor_size * scales
+    sqrt_r = np.sqrt(ratios)
+    ws = (sqrt_r[:, None] * sizes[None, :]).ravel()[None, :]  # [1, A]
+    hs = (sizes[None, :] / sqrt_r[:, None]).ravel()[None, :]
+    xc, yc = np.meshgrid(np.arange(grid_w, dtype=np.float32) * stride,
+                         np.arange(grid_h, dtype=np.float32) * stride)
+    xc = xc.ravel()[:, None]  # [K, 1]
+    yc = yc.ravel()[:, None]
+    anchors = np.stack([xc - 0.5 * ws, yc - 0.5 * hs, xc + 0.5 * ws, yc + 0.5 * hs], axis=2)
+    return anchors.reshape(-1, 4).astype(np.float32)
 
 
 def valid_anchor_mask(

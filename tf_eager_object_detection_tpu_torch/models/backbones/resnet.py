@@ -1,4 +1,4 @@
-"""ResNet v1 C4 backbone + conv5 RoI head
+"""ResNet v1 backbone + conv5 RoI head
 (port of `tf_eager_object_detection_tpu/models/backbones/resnet.py`).
 
 Keras-style bottlenecks with the stride on the first 1x1 conv; conv1 7x7/2
@@ -9,6 +9,8 @@ inputs and outputs are NHWC; the convolutions run in NCHW.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 from torch import nn
@@ -61,29 +63,50 @@ def _add_stack(mod: nn.Module, plan: list, name: str, in_ch: int, filters: int,
 
 
 class ResNetBackbone(nn.Module):
-    """Image [B, H, W, 3] (caffe BGR, NHWC) -> conv4 features [B, H/16, W/16, 1024] NHWC."""
+    """Image [B, H, W, 3] (caffe BGR, NHWC) -> stage outputs, NHWC.
 
-    def __init__(self, depth: int = 50):
+    `return_stages` picks which of (c2, c3, c4, c5) to return: the default
+    ("c4",) is the Faster R-CNN extractor ([B, H/16, W/16, 1024], returned
+    as a tensor); FPN takes ("c2", "c3", "c4", "c5") with `include_c5=True`,
+    which puts the conv5 stack (stride 2) inside the extractor.
+    """
+
+    def __init__(self, depth: int = 50, return_stages: Sequence[str] = ("c4",),
+                 include_c5: bool = False):
         super().__init__()
         if depth not in RESNET_DEPTH_BLOCKS:
             raise ValueError(f"unknown resnet depth {depth}")
         b3, b4 = RESNET_DEPTH_BLOCKS[depth]
         self.depth = depth
+        self.return_stages = tuple(return_stages)
         self.conv1_conv = nn.Conv2d(3, 64, 7, stride=2, padding=3)
         self.conv1_bn = FrozenBatchNorm(64)
         self.pool = nn.MaxPool2d(3, stride=2, padding=1)  # pads with -inf
-        self._plan: list = []
-        ch = _add_stack(self, self._plan, "conv2", 64, 64, 3, 1)
-        ch = _add_stack(self, self._plan, "conv3", ch, 128, b3, 2)
-        _add_stack(self, self._plan, "conv4", ch, 256, b4, 2)
+        self._stages: list = []  # (stage name, its plan)
+        ch = 64
+        stacks = [("c2", "conv2", 64, 3, 1), ("c3", "conv3", 128, b3, 2),
+                  ("c4", "conv4", 256, b4, 2)]
+        if include_c5:
+            stacks.append(("c5", "conv5", 512, 3, 2))
+        for stage, name, filters, blocks, stride in stacks:
+            plan: list = []
+            ch = _add_stack(self, plan, name, ch, filters, blocks, stride)
+            self._stages.append((stage, plan))
+        missing = set(self.return_stages) - {s for s, _ in self._stages}
+        if missing:
+            raise ValueError(f"stages {sorted(missing)} are not built (include_c5={include_c5})")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
         x = x.permute(0, 3, 1, 2).contiguous()
         x = torch.relu(self.conv1_bn(self.conv1_conv(x)))
         x = self.pool(x)
-        for prefix, conv_shortcut in self._plan:
-            x = _bottleneck_forward(self, x, prefix, conv_shortcut)
-        return x.permute(0, 2, 3, 1)
+        out = {}
+        for stage, plan in self._stages:
+            for prefix, conv_shortcut in plan:
+                x = _bottleneck_forward(self, x, prefix, conv_shortcut)
+            out[stage] = x.permute(0, 2, 3, 1)
+        res = tuple(out[s] for s in self.return_stages)
+        return res[0] if len(res) == 1 else res
 
 
 class ResNetRoiHead(nn.Module):

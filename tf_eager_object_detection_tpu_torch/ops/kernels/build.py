@@ -18,7 +18,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_library"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "CudaKernel", "build_library", "device_and_stream"]
 
 _PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PACKAGE_DIR / "csrc"
@@ -50,6 +50,55 @@ def _nvcc() -> str:
     return found
 
 
+class CudaKernel:
+    """A library of `csrc/` with one launch function, its build record and
+    its launch count.
+
+    A subclass names the library (`name`), its sources, the C launch
+    function (`entry`, returning a cudaError_t as int) and its ctypes
+    argument types, and the function that names an error code. `launch`
+    calls the entry point, raises if it returns an error, and otherwise
+    counts one launch.
+    """
+
+    name: str
+    sources: tuple[str, ...]
+    entry: str
+    argtypes: tuple
+    error_fn: str
+
+    def __init__(self):
+        self._lib = None
+        self.build_info: dict | None = None
+        self.launches = 0
+
+    @property
+    def source(self) -> str:
+        """Repository path of the kernel's first source file."""
+        return f"{CSRC_DIR.parent.name}/{CSRC_DIR.name}/{self.sources[0]}"
+
+    def load(self) -> dict:
+        """Build (if needed) and load the library; returns the build record."""
+        if self._lib is None:
+            lib, info = build_library(self.name, list(self.sources))
+            fn = getattr(lib, self.entry)
+            fn.argtypes = list(self.argtypes)
+            fn.restype = ctypes.c_int
+            err = getattr(lib, self.error_fn)
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._lib, self.build_info = lib, info
+        return self.build_info
+
+    def launch(self, *args) -> None:
+        self.load()
+        err = getattr(self._lib, self.entry)(*args)
+        if err != 0:
+            msg = getattr(self._lib, self.error_fn)(err).decode()
+            raise RuntimeError(f"{self.name} kernel launch failed: {msg}")
+        self.launches += 1
+
+
 def build_library(name: str, sources: list[str]) -> tuple[ctypes.CDLL, dict]:
     """Compile `csrc/<sources>` into one shared library and load it.
 
@@ -79,3 +128,11 @@ def build_library(name: str, sources: list[str]) -> tuple[ctypes.CDLL, dict]:
         os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
         info["built"] = True
     return ctypes.CDLL(str(lib_path)), info
+
+
+def device_and_stream(device) -> tuple[int, int]:
+    """(CUDA device index, PyTorch's current stream on it as an int) for a launch."""
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(device).cuda_stream

@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from tf_eager_object_detection_tpu_torch.ops.kernels.build import build_library
+from tf_eager_object_detection_tpu_torch.ops.kernels.build import CudaKernel, device_and_stream
 
 __all__ = ["CudaNms", "NMS_KERNEL"]
 
@@ -22,38 +22,23 @@ __all__ = ["CudaNms", "NMS_KERNEL"]
 _MAX_WORDS = 48 * 1024 // 8
 
 
-class CudaNms:
-    """Holds the loaded library, its build record and the launch count."""
-
-    source = "tf_eager_object_detection_tpu_torch/csrc/nms.cu"
-
-    def __init__(self):
-        self._lib = None
-        self.build_info: dict | None = None
-        self.launches = 0
-
-    def load(self) -> dict:
-        """Build (if needed) and load the library; returns the build record."""
-        if self._lib is None:
-            lib, info = build_library("nms", ["nms.cu"])
-            fn = lib.nms_alive_sorted_cuda
-            fn.argtypes = [
-                ctypes.c_void_p,  # boxes
-                ctypes.c_void_p,  # valid
-                ctypes.c_int,  # batch
-                ctypes.c_int,  # k
-                ctypes.c_float,  # thr
-                ctypes.c_int,  # max_output
-                ctypes.c_void_p,  # mask scratch
-                ctypes.c_void_p,  # alive
-                ctypes.c_int,  # device
-                ctypes.c_void_p,  # stream
-            ]
-            fn.restype = ctypes.c_int
-            lib.nms_error_string.argtypes = [ctypes.c_int]
-            lib.nms_error_string.restype = ctypes.c_char_p
-            self._lib, self.build_info = lib, info
-        return self.build_info
+class CudaNms(CudaKernel):
+    name = "nms"
+    sources = ("nms.cu",)
+    entry = "nms_alive_sorted_cuda"
+    error_fn = "nms_error_string"
+    argtypes = (
+        ctypes.c_void_p,  # boxes
+        ctypes.c_void_p,  # valid
+        ctypes.c_int,  # batch
+        ctypes.c_int,  # k
+        ctypes.c_float,  # thr
+        ctypes.c_int,  # max_output
+        ctypes.c_void_p,  # mask scratch
+        ctypes.c_void_p,  # alive
+        ctypes.c_int,  # device
+        ctypes.c_void_p,  # stream
+    )
 
     def __call__(
         self,
@@ -88,10 +73,9 @@ class CudaNms:
                              f"{_MAX_WORDS * 64}; got B={b}, K={k}")
         if max_output < 1:
             raise ValueError(f"max_output must be >= 1, got {max_output}")
-        self.load()
         mask = torch.empty((b, k, words), dtype=torch.int64, device=sorted_boxes.device)
         alive = torch.empty((b, k), dtype=torch.uint8, device=sorted_boxes.device)
-        err = self._lib.nms_alive_sorted_cuda(
+        self.launch(
             sorted_boxes.data_ptr(),
             sorted_valid.data_ptr(),
             b,
@@ -100,15 +84,8 @@ class CudaNms:
             int(max_output),
             mask.data_ptr(),
             alive.data_ptr(),
-            sorted_boxes.device.index if sorted_boxes.device.index is not None
-            else torch.cuda.current_device(),
-            torch.cuda.current_stream(sorted_boxes.device).cuda_stream,
+            *device_and_stream(sorted_boxes.device),
         )
-        if err != 0:
-            raise RuntimeError(
-                f"CUDA NMS launch failed: {self._lib.nms_error_string(err).decode()}"
-            )
-        self.launches += 1
         return alive.view(torch.bool)
 
 
