@@ -7,13 +7,14 @@ Run from the root of a checkout on a machine with a CUDA GPU, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
 
 1. Prints the card's name and power limit; requires CUDA; turns TF32 off.
-2. Builds both CUDA kernels from `tf_eager_object_detection_tpu_torch/csrc`
-   at once (one nvcc each) and prints their ptxas reports.
+2. Builds the three CUDA libraries from `tf_eager_object_detection_tpu_torch/csrc`
+   at once (one nvcc each: NMS, RoIAlign forward, RoIAlign backward) and
+   prints their ptxas reports.
 3. K1, the NMS kernel, against its plain PyTorch version: index-exact at the
    Faster R-CNN shapes ([1, 6000] -> 300 for `predict`, [4, 6000] -> 300 for
    a served batch, [20, 300] -> 50 per class), the FPN shapes ([4, 6000] ->
    1000, [20, 1000] -> 50) and a cluster-heavy fixture with padded slots
-   ([1, 12000] -> 2000); both times from CUDA events.
+   ([1, 12000] -> 2000, the training RPN NMS); times from CUDA events.
 4. K4, the fused-pyramid RoIAlign kernel, against its plain version within
    atol/rtol 1e-5 on N(0, 1) features: the served shape (B=4, N=1000, the
    four planes of a 640x1024 bucket, image extents below the bucket), the
@@ -21,7 +22,15 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    extent's edge and a roi of aspect > 10; times of the kernel, the plain
    version (one image at a time) and, as a near-equivalent reference only,
    `grid_sample` over the four levels.
-5. Faster R-CNN ResNet-50 serving, then FPN ResNet-50 serving, each at full
+5. K5 (the fused-pyramid backward), K3 (the single-level backward, one
+   launch per level) and K2 (the single-level forward, one launch per level)
+   against their plain versions at the stock training shape (B=1, N=256),
+   at B=4, and on an overlap-heavy and an edge / invalid / aspect-30
+   fixture: each backward cell within 1e-5 of sum |g * w| over its terms
+   (float atomics add in no fixed order), K2 within atol/rtol 1e-5; errors,
+   times, bounds and atomic counts; `grid_sample` (its autograd backward
+   for K5 / K3) per level as a near-equivalent reference only.
+6. Faster R-CNN ResNet-50 serving, then FPN ResNet-50 serving, each at full
    width with seeded random weights and the stock Pascal config: 8 synthetic
    VOC-sized requests through `preprocess_eval_image` -> `batched_im_detect`
    (batch 4) -> `post_ops_prediction`, plus one `predict`. Checks shapes,
@@ -30,7 +39,17 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    path and read after it). Holds `predict` on the card against the port's
    CPU path on a small input. Prints each model's batch time, stages, one
    profiled call and peak memory.
-6. Prints a JSON line with both kernels' records, then as its last line
+7. FPN ResNet-50 training, stock config, full width, seeded random weights:
+   one loss + backward on the card, with cuDNN off and then on, against the
+   port's CPU path (128x128, same weights and draws); then
+   `preprocess_train_image` -> `make_train_step` for 8 steps at B=1
+   (landscape and portrait interleaved), 3 at B=4 and 2 at B=1 with
+   `tpu_roi_align_fused_levels` False, each path's launch counts set to 0
+   before and checked after (per step: K1 1, K4 1, K5 1 fused; K1 1, K2 4,
+   K3 4 per level); losses finite, sample counts as configured; step times,
+   stages, one profiled step of each RoIAlign path, peak memory and conv +
+   linear work per step.
+8. Prints a JSON line with the five kernels' records, then as its last line
    `{"ok": true, "device": {...}}`. Any failure raises: exit code != 0.
 """
 
@@ -48,14 +67,28 @@ import torch
 import torch.nn.functional as F
 
 from tf_eager_object_detection_tpu_torch.config.config_factory import config_factory
-from tf_eager_object_detection_tpu_torch.data.preprocessing import preprocess_eval_image
+from tf_eager_object_detection_tpu_torch.data.preprocessing import (
+    preprocess_eval_image,
+    preprocess_train_image,
+)
 from tf_eager_object_detection_tpu_torch.evaluation.batched_inference import batched_im_detect
+from tf_eager_object_detection_tpu_torch.models.layers import FrozenBatchNorm
 from tf_eager_object_detection_tpu_torch.models.model_factory import model_factory
 from tf_eager_object_detection_tpu_torch.ops import nms as nms_mod
 from tf_eager_object_detection_tpu_torch.ops import roi_align as roi_mod
 from tf_eager_object_detection_tpu_torch.ops.kernels.nms_cuda import NMS_KERNEL
-from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_cuda import ROI_ALIGN_KERNEL
+from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_backward_cuda import (
+    ROI_ALIGN_BACKWARD_KERNEL,
+    ROI_ALIGN_SINGLE_BACKWARD_KERNEL,
+)
+from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_cuda import (
+    ROI_ALIGN_KERNEL,
+    ROI_ALIGN_SINGLE_KERNEL,
+)
 from tf_eager_object_detection_tpu_torch.ops.prediction import post_ops_prediction
+from tf_eager_object_detection_tpu_torch.ops.sampling import TrainDraws
+from tf_eager_object_detection_tpu_torch.training.optimizer import make_optimizer
+from tf_eager_object_detection_tpu_torch.training.train_step import make_train_step
 
 BATCH = 4
 # VOC-like raw sizes (h, w), landscape and portrait interleaved
@@ -78,6 +111,22 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 NMS_OPS_PER_IOU = 15  # float ops of one IoU test in csrc/nms.cu::overlaps
 ROI_OPS_PER_SAMPLE = 9  # 6 multiplies and 3 adds per sample and channel
+BWD_OPS_PER_TAP = 2  # a multiply and an (atomic) add per nonzero tap and channel
+TRAIN_ROIS = 256  # roi_total_sample_number of the stock config
+# the kernels of the port: launch counter and the TPU kernel it replaces
+KERNELS = {
+    "nms_alive_sorted": (NMS_KERNEL, "tf_eager_object_detection_tpu/ops/pallas/nms_pallas.py:28"),
+    "roi_align_single_level": (ROI_ALIGN_SINGLE_KERNEL,
+                               "tf_eager_object_detection_tpu/ops/pallas/roi_align_pallas.py:67"),
+    "roi_align_single_level_backward": (
+        ROI_ALIGN_SINGLE_BACKWARD_KERNEL,
+        "tf_eager_object_detection_tpu/ops/pallas/roi_align_pallas.py:176"),
+    "roi_align_multilevel": (ROI_ALIGN_KERNEL,
+                             "tf_eager_object_detection_tpu/ops/pallas/roi_align_pallas.py:664"),
+    "roi_align_multilevel_backward": (
+        ROI_ALIGN_BACKWARD_KERNEL,
+        "tf_eager_object_detection_tpu/ops/pallas/roi_align_pallas.py:759"),
+}
 
 
 def require(ok: bool, what: str) -> None:
@@ -90,6 +139,15 @@ def card_line() -> str:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+
+
+def reset_launches() -> None:
+    for kernel, _ in KERNELS.values():
+        kernel.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: kernel.launches for name, (kernel, _) in KERNELS.items()}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -112,8 +170,9 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 
 def build_kernels() -> None:
-    """Both libraries built at once (nvcc runs outside the GIL)."""
-    kernels = (NMS_KERNEL, ROI_ALIGN_KERNEL)
+    """The three libraries built at once (nvcc runs outside the GIL); the
+    single-level wrappers then load the libraries of their fused twins."""
+    kernels = (NMS_KERNEL, ROI_ALIGN_KERNEL, ROI_ALIGN_BACKWARD_KERNEL)
     with ThreadPoolExecutor(len(kernels)) as pool:
         infos = list(pool.map(lambda k: k.load(), kernels))
     for kernel, info in zip(kernels, infos):
@@ -122,6 +181,8 @@ def build_kernels() -> None:
         for line in info["log"].splitlines():
             if "registers" in line or "smem" in line or "Compiling" in line:
                 print("  ptxas:", line.strip())
+    ROI_ALIGN_SINGLE_KERNEL.load()
+    ROI_ALIGN_SINGLE_BACKWARD_KERNEL.load()
 
 
 # ------------------------------------------------------------------------- K1
@@ -192,18 +253,25 @@ def check_nms_kernel(card):
 
 
 # ------------------------------------------------------------------------- K4
-def roi_fixture(rng, b, n, hws, c=256, invalid=0.02, special=False):
+def roi_fixture(rng, b, n, hws, c=256, invalid=0.02, special=False, overlap=False):
     """Planes of the FPN bucket, N(0, 1); rois inside each image's extent,
     levels by the FPN rule; with `special`, each image's first rois are its
-    whole extent, its bottom-right corner and a roi of aspect 30."""
+    whole extent, its bottom-right corner and a roi of aspect 30; with
+    `overlap`, every roi starts within a 24-pixel square and is 4 to 40
+    pixels long (many rois on the same few P2 cells)."""
     planes = [torch.randn(b, -(-FPN_BUCKET[0] // s), -(-FPN_BUCKET[1] // s), c,
                           generator=torch.Generator().manual_seed(s)).cuda()
               for s in FPN_STRIDES]
     hws = np.asarray(hws, np.float32)
     h, w = hws[:, :1], hws[:, 1:]
-    x1 = rng.uniform(0, 1, (b, n)) * (w - 2)
-    y1 = rng.uniform(0, 1, (b, n)) * (h - 2)
-    side = np.exp(rng.uniform(np.log(4), np.log(600), (b, n, 2)))
+    if overlap:
+        x1 = 100 + rng.uniform(0, 24, (b, n))
+        y1 = 60 + rng.uniform(0, 24, (b, n))
+        side = rng.uniform(4, 40, (b, n, 2))
+    else:
+        x1 = rng.uniform(0, 1, (b, n)) * (w - 2)
+        y1 = rng.uniform(0, 1, (b, n)) * (h - 2)
+        side = np.exp(rng.uniform(np.log(4), np.log(600), (b, n, 2)))
     rois = np.stack([x1, y1, np.minimum(x1 + side[..., 0], w - 1),
                      np.minimum(y1 + side[..., 1], h - 1)], -1).astype(np.float32)
     if special:
@@ -255,13 +323,11 @@ def roi_bound(args):
     return bound(nbytes, samples * c * ROI_OPS_PER_SAMPLE)
 
 
-def grid_sample_levels(args):
-    """`grid_sample` per level on the same sample points, as a near-equivalent
-    reference: it zeroes single taps outside the plane (not whole samples
-    outside the valid extent) and takes one level per call. Returns a
-    closure over inputs prepared outside the timing."""
+def level_grids(args):
+    """Each level's plane in NCHW and the `grid_sample` grid of every roi's
+    sample points on it (align_corners: cell centres at -1 and 1)."""
     planes, rois, levels, valid, ih, iw, crop, strides = args
-    prepared = []
+    out = []
     for plane, s in zip(planes, strides):
         h, w = plane.shape[1], plane.shape[2]
         ys, _ = roi_mod.level_sample_coords(rois[..., 1], rois[..., 3], ih, s, crop)
@@ -269,7 +335,16 @@ def grid_sample_levels(args):
         gy = (ys * (2.0 / (h - 1)) - 1.0)[..., :, None].expand(*ys.shape, crop)
         gx = (xs * (2.0 / (w - 1)) - 1.0)[..., None, :].expand(*xs.shape[:-1], crop, crop)
         grid = torch.stack([gx, gy], -1).reshape(rois.shape[0], -1, crop, 2).contiguous()
-        prepared.append((plane.permute(0, 3, 1, 2).contiguous(), grid))
+        out.append((plane.permute(0, 3, 1, 2).contiguous(), grid))
+    return out
+
+
+def grid_sample_levels(args):
+    """`grid_sample` per level on the same sample points, as a near-equivalent
+    reference: it zeroes single taps outside the plane (not whole samples
+    outside the valid extent) and takes one level per call. Returns a
+    closure over inputs prepared outside the timing."""
+    prepared = level_grids(args)
     return lambda: [F.grid_sample(x, g, mode="bilinear", padding_mode="zeros",
                                   align_corners=True) for x, g in prepared]
 
@@ -306,7 +381,160 @@ def check_roi_kernel(card):
               f"{bound_ms:.4f} ms ({bound_by}), grid_sample x4 levels (near-equivalent "
               f"reference, not the same function) {grid_ms:.4f} ms  ({card})")
         record[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, grid_sample_ms=grid_ms)
+                            bound_by=bound_by, near_reference_ms=grid_ms)
+    return record
+
+
+# --------------------------------------------------------------- K5, K3, K2
+def single_level_args(args, k):
+    """The fused fixture's level k as single-level arguments: plane k, the
+    rois assigned to it (and valid) active."""
+    planes, rois, levels, valid, ih, iw, crop, strides = args
+    return [planes[k]], rois, torch.zeros_like(levels), (levels == k) & valid, ih, iw, crop, \
+        (strides[k],)
+
+
+def per_level(args):
+    return [single_level_args(args, k) for k in range(len(args[0]))]
+
+
+def plain_backward(g, args):
+    """The plain backward one image at a time (autograd through the plain
+    forward; its P2 matmul intermediates are ~1 GB per image at N=256)."""
+    planes, rois, levels, valid, ih, iw, crop, strides = args
+    per_image = [roi_mod.roi_align_multilevel_reference_backward(
+        g[i:i + 1], [p[i:i + 1] for p in planes], rois[i:i + 1], levels[i:i + 1],
+        valid[i:i + 1], ih[i:i + 1], iw[i:i + 1], crop, strides) for i in range(rois.shape[0])]
+    return [torch.cat(ds) for ds in zip(*per_image)]
+
+
+def tap_count(args):
+    """Nonzero taps of the in-range samples of the valid rois on their own levels."""
+    planes, rois, levels, valid, ih, iw, crop, strides = args
+    taps = 0
+    for k, s in enumerate(strides):
+        ys, y_ok = roi_mod.level_sample_coords(rois[..., 1], rois[..., 3], ih, s, crop)
+        xs, x_ok = roi_mod.level_sample_coords(rois[..., 0], rois[..., 2], iw, s, crop)
+        ok = ((levels == k) & valid)[..., None, None] & y_ok[..., :, None] & x_ok[..., None, :]
+        ny = 1 + (ys != ys.floor()).long()  # a tap of weight 0 adds nothing
+        nx = 1 + (xs != xs.floor()).long()
+        taps += int(((ny[..., :, None] * nx[..., None, :]) * ok).sum())
+    return taps
+
+
+def backward_bound(g, args):
+    """Bound of one backward call: g of the valid rois read once, every
+    gradient plane written once (zeros plus the scatter), the small inputs;
+    a multiply and an add per nonzero tap and channel. Also the atomic count."""
+    planes, rois, levels, valid, ih, iw, crop, strides = args
+    c = planes[0].shape[-1]
+    taps = tap_count(args)
+    nbytes = int(valid.sum()) * crop * crop * c * 4 + sum(p.numel() * 4 for p in planes)
+    nbytes += sum(t.numel() * t.element_size() for t in (rois, levels, valid, ih, iw))
+    return (*bound(nbytes, taps * c * BWD_OPS_PER_TAP), taps * c)
+
+
+def grid_sample_backward(g, args):
+    """The autograd backward of `grid_sample` per level on the same sample
+    points, as a near-equivalent reference only (it scatters every roi into
+    every level, with single taps zeroed outside the plane). Returns a closure
+    over a forward made outside the timing."""
+    ins, outs = [], []
+    for x, grid in level_grids(args):
+        x.requires_grad_()
+        ins.append(x)
+        outs.append(F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                                  align_corners=True))
+    gs = [g.permute(0, 4, 1, 2, 3).reshape(o.shape).contiguous() for o in outs]
+    return lambda: torch.autograd.grad(outs, ins, gs, retain_graph=True)
+
+
+def check_backward(name, kernel, g, args_list, iters=20):
+    """A backward kernel (one launch per element of `args_list`) against the
+    plain backward: each cell within 1e-5 of sum |g * w| over its terms (the
+    plain backward of |g|). Returns the record."""
+    err = rel = 0.0
+    for args in args_list:
+        got = kernel(g, [tuple(p.shape) for p in args[0]], *args[1:])
+        torch.cuda.synchronize()
+        ref = plain_backward(g, args)
+        scale = plain_backward(g.abs(), args)
+        for d, r, m in zip(got, ref, scale):
+            diff = (d - r).abs()
+            require(bool((diff <= 1e-5 * m).all()) and bool(torch.isfinite(d).all()),
+                    f"{name} differs from the plain backward: max abs err {float(diff.max())}")
+            err = max(err, float(diff.max()))
+            rel = max(rel, float((diff / m.clamp_min(1e-30)).max()))
+        del got, ref, scale
+    ms = cuda_ms(lambda: [kernel(g, [tuple(p.shape) for p in a[0]], *a[1:]) for a in args_list],
+                 iters=iters)
+    plain_ms = cuda_ms(lambda: [plain_backward(g, a) for a in args_list], iters=2, warmup=1)
+    bounds = [backward_bound(g, a) for a in args_list]
+    bound_ms = sum(b[0] for b in bounds)
+    bound_by = bounds[0][1]
+    atomics = sum(b[2] for b in bounds)
+    return dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, atomics=atomics)
+
+
+def check_forward(name, kernel, args_list, iters=20):
+    """A forward kernel (one launch per element of `args_list`, summed) against
+    the plain version within atol/rtol 1e-5. Returns the record."""
+    got = sum(kernel(*a) for a in args_list)
+    torch.cuda.synchronize()
+    ref = sum(plain_per_image(a) for a in args_list)
+    err = float((got - ref).abs().max())
+    require(float(((got - ref).abs() - 1e-5 * ref.abs()).max()) <= 1e-5
+            and bool(torch.isfinite(got).all()), f"{name} differs from the plain version: "
+            f"max abs err {err}")
+    del got, ref
+    ms = cuda_ms(lambda: [kernel(*a) for a in args_list], iters=iters)
+    plain_ms = cuda_ms(lambda: [plain_per_image(a) for a in args_list], iters=2, warmup=1)
+    bounds = [roi_bound(a) for a in args_list]
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=sum(b[0] for b in bounds),
+                bound_by=bounds[0][1])
+
+
+def check_training_kernels(card):
+    """K5 (fused backward), K3 (single-level backward, four launches: one per
+    level) and K2 (single-level forward, four launches) against their plain
+    versions at the stock training shape (B=1, N=256), at B=4 and on an
+    overlap-heavy and an edge / invalid / aspect-30 fixture. Returns
+    {kernel: {case: record}}."""
+    rng = np.random.RandomState(2)
+    cases = [
+        ("train_b1", roi_fixture(rng, 1, TRAIN_ROIS, [[600, 800]], invalid=0.0)),
+        ("train_b4", roi_fixture(rng, BATCH, TRAIN_ROIS,
+                                 [[600, 800], [600, 1000], [576, 768], [640, 853]], invalid=0.0)),
+        ("overlap", roi_fixture(rng, 1, TRAIN_ROIS, [[600, 800]], invalid=0.0, overlap=True)),
+        ("edges_invalid_elongated", roi_fixture(rng, 2, 64, [[600, 1000], [500, 380]],
+                                                invalid=0.3, special=True)),
+    ]
+    record = {"roi_align_multilevel_backward": {}, "roi_align_single_level_backward": {},
+              "roi_align_single_level": {}}
+    for case, args in cases:
+        b, n = args[1].shape[:2]
+        g = torch.randn(b, n, CROP, CROP, args[0][0].shape[-1],
+                        generator=torch.Generator().manual_seed(b * n)).cuda()
+        k5 = check_backward("K5", ROI_ALIGN_BACKWARD_KERNEL, g, [args])
+        k5["near_reference_ms"] = cuda_ms(grid_sample_backward(g, args), iters=5)
+        k3 = check_backward("K3", ROI_ALIGN_SINGLE_BACKWARD_KERNEL, g, per_level(args))
+        k3["near_reference_ms"] = k5["near_reference_ms"]
+        k2 = check_forward("K2", ROI_ALIGN_SINGLE_KERNEL, per_level(args))
+        k2["near_reference_ms"] = cuda_ms(grid_sample_levels(args), iters=10)
+        for kname, rec in (("roi_align_multilevel_backward", k5),
+                           ("roi_align_single_level_backward", k3),
+                           ("roi_align_single_level", k2)):
+            record[kname][case] = rec
+            extra = (f", max rel err {rec['max_rel_err']:.3g} of sum|g*w| (tolerance 1e-5), "
+                     f"{rec['atomics']} float atomics") if "atomics" in rec else " (atol/rtol 1e-5)"
+            print(f"{kname} {case} [B={b}, N={n}]: max_abs_err {rec['max_abs_err']:.3g}{extra}, "
+                  f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), grid_sample per level "
+                  f"(near-equivalent reference, not the same function) "
+                  f"{rec['near_reference_ms']:.4f} ms  ({card})")
+        del g
+        torch.cuda.empty_cache()
     return record
 
 
@@ -421,7 +649,8 @@ def stage_breakdown(det, images, hw, card):
     with torch.inference_mode():
         if det.model_type == "fpn":
             (p_list, score, bbox), t_bb = timed(lambda: det._backbone_neck_rpn(images))
-            (rois, valid), t_rp = timed(lambda: det._proposals(score, bbox, hw))
+            (rois, valid), t_rp = timed(
+                lambda: det._proposals(*det._flatten_levels(score, bbox), hw))
             feats, t_crop = timed(lambda: det._roi_features(p_list, rois, valid, hw))
             _, t_head = timed(lambda: det._roi_head(feats))
             names = ("backbone+neck+rpn", "proposals (incl. NMS)", "K4 roi align + pool", "roi head")
@@ -483,7 +712,7 @@ def device_profile(fn, card, top: int = 8):
           f"idle share {1 - busy_ms / wall_ms:.3f}  ({card})")
     for e in kernels[:top]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
-    ours = [(re.search(r"(nms_\w+_kernel|roi_align_ml_kernel)", e.key), e) for e in kernels]
+    ours = [(re.search(r"(nms_\w+_kernel|roi_align_ml_\w*kernel)", e.key), e) for e in kernels]
     print("  port kernels: " + ", ".join(
         f"{m.group(0)} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for m, e in ours if m))
 
@@ -496,21 +725,21 @@ def drive_path(model_type, requests, card):
     serve(det, requests, cfg)  # warm-up: cuDNN algorithm choice, allocator
     torch.cuda.synchronize()
 
-    NMS_KERNEL.launches = 0
-    ROI_ALIGN_KERNEL.launches = 0
+    reset_launches()
     results, latency, total, batches = serve(det, requests, cfg)
     padded, hw, *_ = preprocess_eval_image(requests[0], cfg)
     one = det.predict(padded, hw)
     one = type(one)(*(t.cpu() for t in one))
-    launches = {"nms": NMS_KERNEL.launches, "roi_align": ROI_ALIGN_KERNEL.launches}
+    launches = launch_counts()
 
     slots = cfg["max_objects_per_image"]
     check_detections(results, len(requests), slots)
     check_detections({0: (one, (int(hw[0]), int(hw[1])))}, 1, slots)
     # one batched RPN NMS per flushed batch, one class-batched NMS per image;
     # FPN: one K4 launch per flushed batch and one for predict
-    expected = {"nms": batches + len(requests) + 2,
-                "roi_align": batches + 1 if model_type == "fpn" else 0}
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["nms_alive_sorted"] = batches + len(requests) + 2
+    expected["roi_align_multilevel"] = batches + 1 if model_type == "fpn" else 0
     print(f"{model_type} kernel launches in the main path: {launches} (expected {expected}: "
           f"{batches} batches, {len(requests)} per-class NMS, predict)")
     require(launches == expected, f"{model_type} launches {launches} != expected {expected}")
@@ -546,6 +775,226 @@ def drive_path(model_type, requests, card):
     return launches
 
 
+# ----------------------------------------------------------------- training
+# small-input overrides of the card-vs-CPU training step (as tests/test_torch_fpn_train.py)
+TRAIN_CPU_CHECK = dict(rpn_proposal_train_pre_nms_sample_number=512,
+                       rpn_proposal_train_after_nms_sample_number=64, rpn_total_sample_number=64,
+                       rpn_pos_sample_max_number=32, roi_total_sample_number=32,
+                       roi_pos_sample_max_number=8, tpu_max_gt_boxes=8)
+# per training step: the RPN NMS, then K4 + K5 fused or K2 + K3 once per level
+PER_STEP = {
+    "fused": {"nms_alive_sorted": 1, "roi_align_multilevel": 1, "roi_align_multilevel_backward": 1},
+    "per_level": {"nms_alive_sorted": 1, "roi_align_single_level": 4,
+                  "roi_align_single_level_backward": 4},
+}
+
+
+# Card step vs the port's CPU step: every gradient within GRAD_TOL of its
+# tensor's largest value (the tolerance of tests/test_torch_fpn_train.py) with
+# cuDNN off, where the convolutions are PyTorch's own CUDA GEMMs; within
+# CUDNN_GRAD_TOL with cuDNN on, whose FFT and Winograd convolutions round
+# differently in float32 and move a few conv4 gradients of this random-weight
+# network by more than GRAD_TOL (the check prints both worst cases).
+GRAD_TOL = 2e-3
+CUDNN_GRAD_TOL = 2e-2
+
+
+def grads_close(got, want, tol) -> float:
+    """Largest |got - want| / max|want| over the tensors; raises above `tol`."""
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name]
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        require(err <= tol, f"gradient of {name} differs by {err:.3g} of its largest value "
+                f"(tolerance {tol})")
+        worst = max(worst, err)
+    return worst
+
+
+def small_training_step(small, device, draws, inputs):
+    """One loss and backward of a seeded FPN on the small input -> (metrics,
+    gradients on the host)."""
+    det = model_factory("fpn", "resnet50", small, device=device, seed=1)
+    with torch.no_grad():
+        det.rpn_head.rpn_score_conv.weight.mul_(20.0)
+    total, metrics = det.loss_fn(*inputs, TrainDraws(*(t.to(device) for t in draws)))
+    total.backward()
+    return ({k: float(v.detach()) for k, v in metrics.items()},
+            {n: p.grad.cpu() for n, p in det.named_parameters()})
+
+
+def check_training_against_cpu(cfg, card):
+    """One training loss and backward on the card against the port's CPU path
+    (held against JAX by tests/test_torch_fpn_train.py) on a 128x128 input,
+    same seeded weights and the same draws: losses rtol 1e-4, counts exact,
+    every gradient within GRAD_TOL (cuDNN off) or CUDNN_GRAD_TOL (cuDNN on)
+    of its tensor's largest value. A RoI gradient that failed to reach the
+    pyramid would show in the neck's and the backbone's gradients at O(1).
+    The RPN score layer is scaled so that random-weight proposals separate,
+    as in the CPU tests."""
+    small = dict(cfg, tpu_image_buckets=[[128, 128]], image_min_size=128, image_max_size=128,
+                 **TRAIN_CPU_CHECK)
+    rng = np.random.RandomState(3)
+    image = rng.randn(1, 128, 128, 3).astype(np.float32)
+    hw = np.asarray([[120, 124]], np.int32)
+    gt = np.zeros((1, 8, 4), np.float32)
+    gt[0, :3] = [[10, 12, 60, 70], [40, 30, 118, 100], [5, 50, 50, 110]]
+    gt_mask = np.arange(8)[None] < 3
+    gt_labels = np.asarray([[3, 7, 12, 0, 0, 0, 0, 0]], np.int32)
+    inputs = (image, hw, gt, gt_mask, gt_labels)
+    anchors = 3 * sum((-(-128 // s)) ** 2 for s in small["anchor_stride_list"])
+    draws = TrainDraws.sample(torch.Generator().manual_seed(5), 1, anchors, 64, 32)
+    cm, cg = small_training_step(small, "cpu", draws, inputs)
+    for cudnn, tol in ((False, GRAD_TOL), (True, CUDNN_GRAD_TOL)):
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            gm, gg = small_training_step(small, "cuda", draws, inputs)
+        finally:
+            torch.backends.cudnn.enabled = True
+        for k in cm:
+            ktol = 1e-4 * abs(cm[k]) if k.endswith("loss") else 0.0
+            require(abs(gm[k] - cm[k]) <= ktol, f"training {k}: cuda {gm[k]} vs cpu {cm[k]}")
+        worst = grads_close(gg, cg, tol)
+        print(f"fpn training loss + backward 128x128, cuda (cuDNN {'on' if cudnn else 'off'}) vs "
+              f"the port's cpu path: losses within rtol 1e-4 (total {gm['total_loss']:.6f} vs "
+              f"{cm['total_loss']:.6f}), counts equal, {len(cg)} gradients within {worst:.3g} "
+              f"of their largest value (tolerance {tol})  ({card})")
+
+
+def make_train_items(seed: int = 0):
+    """The 8 request images with 1-8 random gt boxes each: (raw RGB, boxes
+    [n, 4] normalized yxyx, labels [n])."""
+    rng = np.random.RandomState(seed + 1)
+    items = []
+    for img in make_requests(seed):
+        n = rng.randint(1, 9)
+        lo = rng.uniform(0.0, 0.7, (n, 2))
+        hi = np.minimum(lo + rng.uniform(0.08, 0.6, (n, 2)), 1.0)
+        boxes = np.concatenate([lo, hi], 1).astype(np.float32)
+        items.append((img, boxes, rng.randint(1, 21, n).astype(np.int32)))
+    return items
+
+
+def train_batch(items, cfg, rng):
+    """`preprocess_train_image` (random flip) on each item, stacked on the card."""
+    pre = [preprocess_train_image(img, boxes, labels, cfg, rng) for img, boxes, labels in items]
+    return tuple(torch.as_tensor(np.stack(x), device="cuda") for x in zip(*pre))
+
+
+def train_path(name, step, batches, gen, cfg, per_step, card):
+    """Steps over `batches` with the launch counts set to 0 before and read
+    after; checks losses, sample counts and launches. Returns the counts."""
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    metrics = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = launch_counts()
+    for i, m in enumerate(metrics):
+        require(all(np.isfinite(v) for v in m.values()), f"{name} step {i}: non-finite {m}")
+        require(m["num_rpn_fg"] + m["num_rpn_bg"] == cfg["rpn_total_sample_number"]
+                and 0 < m["num_rpn_fg"] <= cfg["rpn_pos_sample_max_number"]
+                and 0 <= m["num_roi_fg"] <= cfg["roi_pos_sample_max_number"]
+                and 0 < m["num_proposals"] <= cfg["rpn_proposal_train_after_nms_sample_number"],
+                f"{name} step {i}: sample counts {m}")
+    expected = {k: per_step.get(k, 0) * len(batches) for k in KERNELS}
+    print(f"{name}: kernel launches {launches} (expected {expected}: {len(batches)} steps)")
+    require(launches == expected, f"{name} launches {launches} != expected {expected}")
+    b = batches[0][0].shape[0]
+    med = float(np.median(times[1:])) if len(times) > 1 else times[0]
+    last = metrics[-1]
+    print(f"{name}: {len(batches)} steps of batch {b}, step ms {[round(t, 2) for t in times]}, "
+          f"median after the first {med:.2f} ms = {b * 1e3 / med:.3f} images/s; last step "
+          f"losses rpn_cls {last['rpn_cls_loss']:.4f} rpn_reg {last['rpn_reg_loss']:.4f} "
+          f"roi_cls {last['roi_cls_loss']:.4f} roi_reg {last['roi_reg_loss']:.4f}, samples "
+          f"rpn fg/bg {last['num_rpn_fg']:.0f}/{last['num_rpn_bg']:.0f}, roi fg "
+          f"{last['num_roi_fg']:.0f}, proposals {last['num_proposals']:.0f}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  ({card})")
+    return launches
+
+
+def train_stages(det, opt, batch, gen, card):
+    """Host-clock time of each stage of one step, synchronised between stages,
+    and the step's conv + linear work (forward counted by hooks; the backward
+    is twice the forward less conv1's input gradient, which no step needs)."""
+    fwd = layer_flops(det, lambda: det.loss_fn(*batch, gen))
+    conv1 = det.extractor.conv1_conv
+    first = layer_flops(conv1, lambda: conv1(batch[0].permute(0, 3, 1, 2)))
+    opt.zero_grad()
+    (total, _), t_fwd = timed(lambda: det.loss_fn(*batch, gen))
+    _, t_bwd = timed(total.backward)
+    _, t_opt = timed(opt.step)
+    tflop = (3 * fwd - first) / 1e12
+    step_ms = t_fwd + t_bwd + t_opt
+    print(f"fpn train stages, batch {batch[0].shape[0]} at {tuple(batch[0].shape[1:3])}: "
+          f"forward + proposals + targets {t_fwd:.2f} ms, backward {t_bwd:.2f} ms, optimizer "
+          f"{t_opt:.2f} ms; conv + linear work {tflop:.4f} TFLOP per step, "
+          f"{tflop / step_ms * 1e3:.2f} TFLOP/s over the step, "
+          f"{tflop / step_ms * 1e3 / (F32_FLOP_PER_S / 1e12):.3f} of the f32 peak  ({card})")
+
+
+@torch.no_grad()
+def calibrate_frozen_bn(det, images):
+    """Set every FrozenBatchNorm's statistics to its input's per-channel mean
+    and variance on `images`, in forward order, as a pretrained backbone's
+    would normalize. Without it, random weights and caffe-scaled pixels give
+    activations that grow through the 50 layers, logits in the hundreds,
+    and training steps that diverge."""
+
+    def hook(bn, inputs):
+        x = inputs[0]
+        bn.moving_mean.copy_(x.mean(dim=(0, 2, 3)))
+        bn.moving_variance.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+
+    handles = [m.register_forward_pre_hook(hook) for m in det.modules()
+               if isinstance(m, FrozenBatchNorm)]
+    try:
+        det.extractor(images)
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def drive_training(card):
+    """FPN ResNet-50 training at full width, stock config, seeded random
+    weights: 8 steps at B=1 (landscape and portrait interleaved), 3 at B=4
+    (landscape), 2 at B=1 with `tpu_roi_align_fused_levels` False. Returns
+    {path: launch counts}."""
+    cfg = dict(config_factory("pascal", "fpn"))
+    check_training_against_cpu(cfg, card)
+    det = model_factory("fpn", "resnet50", cfg, device="cuda", seed=0)
+    opt = make_optimizer(cfg, det)
+    step = make_train_step(det, opt)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rng = np.random.RandomState(0)
+    items = make_train_items()
+    b1 = [train_batch([it], cfg, rng) for it in items]
+    landscape = [it for it in items if it[0].shape[0] < it[0].shape[1]][:BATCH]
+    b4 = [train_batch(landscape, cfg, rng) for _ in range(3)]
+    calibrate_frozen_bn(det, b4[0][0])
+    step(b1[0], gen)  # warm-up: cuDNN algorithm choice, allocator
+    step(b4[0], gen)
+    paths = {"fpn_train_b1": train_path("fpn_train_b1", step, b1, gen, cfg, PER_STEP["fused"], card),
+             "fpn_train_b4": train_path("fpn_train_b4", step, b4, gen, cfg, PER_STEP["fused"], card)}
+    for batch in (b1[0], b4[0]):
+        train_stages(det, opt, batch, gen, card)
+    device_profile(lambda: step(b1[0], gen), card)
+    det.cfg["tpu_roi_align_fused_levels"] = False
+    step(b1[1], gen)  # warm-up of the per-level path
+    paths["fpn_train_per_level"] = train_path("fpn_train_per_level", step, b1[:2], gen, cfg,
+                                              PER_STEP["per_level"], card)
+    device_profile(lambda: step(b1[0], gen), card)
+    del det, opt, step
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU",
@@ -562,47 +1011,52 @@ def main() -> int:
     build_kernels()
     nms = check_nms_kernel(card)
     roi = check_roi_kernel(card)
+    train_kernels = check_training_kernels(card)
     print(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
     requests = make_requests()
     paths = {m: drive_path(m, requests, card) for m in ("faster_rcnn", "fpn")}
     print(f"serving phases done at {time.perf_counter() - t_start:.1f} s")
+    paths.update(drive_training(card))
+    print(f"training phases done at {time.perf_counter() - t_start:.1f} s")
 
-    nms_main, roi_main = nms[NMS_MAIN], roi["served"]
-    print(json.dumps({"kernels": [
-        {
-            "name": "nms_alive_sorted",
+    main_cases = {  # kernel -> (its records, the main-path case, the case's shape)
+        "nms_alive_sorted": (nms, NMS_MAIN, "[4,6000]->1000 @0.7"),
+        "roi_align_multilevel": (roi, "served", "B=4 N=1000 S=14 C=256, P2..P5 of 640x1024"),
+        **{k: (train_kernels[k], "train_b1", shape) for k, shape in (
+            ("roi_align_single_level", "B=1 N=256 S=14 C=256, one launch per level P2..P5"),
+            ("roi_align_single_level_backward",
+             "B=1 N=256 S=14 C=256, one launch per level P2..P5"),
+            ("roi_align_multilevel_backward", "B=1 N=256 S=14 C=256, P2..P5 of 640x1024"))},
+    }
+    rows = []
+    for name, (kernel, replaces) in KERNELS.items():
+        records, case, shape = main_cases[name]
+        rec = records[case]
+        row = {
+            "name": name,
             "route": "cuda",
-            "source": NMS_KERNEL.source,
-            "replaces": "tf_eager_object_detection_tpu/ops/pallas/nms_pallas.py:28",
-            "launches": sum(p["nms"] for p in paths.values()),
-            "launches_by_path": {m: p["nms"] for m, p in paths.items()},
-            "shape": "[4,6000]->1000 @0.7",
-            "max_abs_err": max(r["max_abs_err"] for r in nms.values()),
-            "ms": nms_main["ms"],
-            "plain_ms": nms_main["plain_ms"],
-            "bound_ms": nms_main["bound_ms"],
-            "bound_by": nms_main["bound_by"],
-            "library_ms": None,  # no single PyTorch call computes NMS
-        },
-        {
-            "name": "roi_align_multilevel",
-            "route": "cuda",
-            "source": ROI_ALIGN_KERNEL.source,
-            "replaces": "tf_eager_object_detection_tpu/ops/pallas/roi_align_pallas.py:664",
-            "launches": sum(p["roi_align"] for p in paths.values()),
-            "launches_by_path": {m: p["roi_align"] for m, p in paths.items()},
-            "shape": "B=4 N=1000 S=14 C=256, P2..P5 of 640x1024",
-            "max_abs_err": max(r["max_abs_err"] for r in roi.values()),
-            "ms": roi_main["ms"],
-            "plain_ms": roi_main["plain_ms"],
-            "bound_ms": roi_main["bound_ms"],
-            "bound_by": roi_main["bound_by"],
-            "library_ms": None,  # no single PyTorch call computes the fused-pyramid crop
-            "near_reference_ms": roi_main["grid_sample_ms"],
-            "near_reference": "torch.nn.functional.grid_sample, one call per level",
-        },
-    ]}))
+            "source": kernel.source,
+            "replaces": replaces,
+            "launches": sum(p[name] for p in paths.values()),
+            "launches_by_path": {m: p[name] for m, p in paths.items()},
+            "shape": shape,
+            "max_abs_err": max(r["max_abs_err"] for r in records.values()),
+            "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes the same function
+        }
+        if name != "nms_alive_sorted":
+            row["near_reference_ms"] = rec["near_reference_ms"]
+            row["near_reference"] = ("autograd backward of torch.nn.functional.grid_sample, one "
+                                     "call per level" if name.endswith("backward") else
+                                     "torch.nn.functional.grid_sample, one call per level")
+        if "atomics" in rec:
+            row["atomics"] = rec["atomics"]
+        rows.append(row)
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

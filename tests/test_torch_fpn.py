@@ -53,9 +53,8 @@ ROI_SCORE_SCALE = 10.0
 
 # keys of the JAX preset that only select or tune TPU code paths
 _TPU_ONLY_KEYS = {
-    "tpu_roi_align_window_dtype", "tpu_roi_align_window", "tpu_roi_align_fused_levels",
-    "tpu_roi_align_contract", "tpu_fused_optimizer", "tpu_fpn_per_level_prenms",
-    "tpu_native_decode",
+    "tpu_roi_align_window_dtype", "tpu_roi_align_window", "tpu_roi_align_contract",
+    "tpu_fused_optimizer", "tpu_fpn_per_level_prenms", "tpu_native_decode",
 }
 
 

@@ -1,10 +1,14 @@
 """FPN config preset (port of `tf_eager_object_detection_tpu/config/fpn_config.py`).
 
 Same keys and values as the JAX preset, without the keys that only select or
-tune TPU code paths: the Pallas RoIAlign's window, window dtype, level
-fusion and einsum contraction order (`tpu_roi_align_*`), the per-level
-pre-NMS prefilter (`tpu_fpn_per_level_prenms`), `tpu_fused_optimizer` and
-`tpu_native_decode`. The port's RoIAlign samples exactly, with no window.
+tune TPU code paths: the Pallas RoIAlign's window, window dtype and einsum
+contraction order (`tpu_roi_align_window`, `tpu_roi_align_window_dtype`,
+`tpu_roi_align_contract`), the per-level pre-NMS prefilter
+(`tpu_fpn_per_level_prenms`), `tpu_fused_optimizer` and `tpu_native_decode`.
+The port's RoIAlign samples exactly, with no window. It keeps
+`tpu_roi_align_fused_levels`: True (the default) samples every roi from its
+level in one fused-pyramid kernel (K4, backward K5), False runs the
+single-level kernel once per level and sums (K2, backward K3).
 """
 
 
@@ -75,6 +79,8 @@ def get_default_pascal_fpn_config():
         "tpu_max_gt_boxes": 100,
         "tpu_train_batch_size_per_device": 1,
         "tpu_compute_dtype": "float32",
+        # one fused-pyramid RoIAlign launch (True) or one per level (False)
+        "tpu_roi_align_fused_levels": True,
     }
 
 

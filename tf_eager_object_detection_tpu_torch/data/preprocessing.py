@@ -1,11 +1,13 @@
-"""Host-side eval preprocessing (port of `tf_eager_object_detection_tpu/data/preprocessing.py`).
+"""Host-side preprocessing (port of `tf_eager_object_detection_tpu/data/preprocessing.py`).
 
-The serving half of the JAX module, on numpy: the reference's resize rule
-(scale = min(min_size/min(h,w), max_size/max(h,w)), new size int(scale*dim)),
-caffe or tf normalization, and zero padding right/bottom into the smallest
-static bucket of `tpu_image_buckets` that fits. As in the JAX module, cv2
-resizes when it is installed and a numpy bilinear (half-pixel) resize runs
-otherwise. The training half (flip, gt boxes) comes with the training port.
+The JAX module on numpy: the reference's resize rule (scale =
+min(min_size/min(h,w), max_size/max(h,w)), new size int(scale*dim)), caffe
+or tf normalization, zero padding right/bottom into the smallest static
+bucket of `tpu_image_buckets` that fits; for training, a random horizontal
+flip (p = 0.5, from the caller's `np.random.RandomState`) and gt boxes
+denormalized by (new_dim - 1), swapped to xyxy and padded to
+`tpu_max_gt_boxes` rows. As in the JAX module, cv2 resizes when it is
+installed and a numpy bilinear (half-pixel) resize runs otherwise.
 """
 
 from __future__ import annotations
@@ -24,8 +26,10 @@ __all__ = [
     "caffe_normalize",
     "tf_normalize",
     "resize_image",
+    "random_hflip",
     "pick_bucket",
     "pad_to_bucket",
+    "preprocess_train_image",
     "preprocess_eval_image",
 ]
 
@@ -71,6 +75,19 @@ def resize_image(image: np.ndarray, scale: float) -> np.ndarray:
     return top * (1 - fy) + bot * fy
 
 
+def random_hflip(
+    image: np.ndarray, boxes01_yxyx: np.ndarray, rng: np.random.RandomState
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Flip the image and its [0, 1]-normalized yxyx boxes with p = 0.5."""
+    if rng.rand() < 0.5:
+        image = image[:, ::-1]
+        b = boxes01_yxyx.copy()
+        if len(b):
+            b[:, 1], b[:, 3] = 1.0 - boxes01_yxyx[:, 3], 1.0 - boxes01_yxyx[:, 1]
+        return image, b
+    return image, boxes01_yxyx
+
+
 def pick_bucket(h: int, w: int, buckets: Sequence[Sequence[int]]) -> Tuple[int, int]:
     """Smallest bucket that fits (h, w); falls back to the largest."""
     best = None
@@ -95,6 +112,50 @@ def pad_to_bucket(image: np.ndarray, bucket: Tuple[int, int]) -> np.ndarray:
     out = np.zeros((bh, bw) + image.shape[2:], image.dtype)
     out[:h, :w] = image
     return out
+
+
+def preprocess_train_image(
+    image_rgb: np.ndarray,
+    boxes01_yxyx: np.ndarray,
+    labels: np.ndarray,
+    cfg: dict,
+    rng: np.random.RandomState,
+    augment: bool = True,
+    preprocessing_type: str = "caffe",
+):
+    """One training image -> (padded image, image_hw, boxes_xyxy, mask, labels).
+
+    Boxes come out in pixel xyxy on the resized image, padded to
+    cfg['tpu_max_gt_boxes'] rows. Caffe normalization subtracts float32
+    means here (the reference's training path).
+    """
+    if augment:
+        image_rgb, boxes01_yxyx = random_hflip(image_rgb, boxes01_yxyx, rng)
+    if preprocessing_type == "caffe":
+        img = caffe_normalize(image_rgb, cfg["bgr_pixel_means"])
+    elif preprocessing_type == "tf":
+        img = tf_normalize(image_rgb)
+    else:
+        raise ValueError(preprocessing_type)
+    h, w = img.shape[:2]
+    img = resize_image(img, compute_scale(h, w, cfg["image_min_size"], cfg["image_max_size"]))
+    nh, nw = img.shape[:2]
+
+    g = cfg["tpu_max_gt_boxes"]
+    boxes = np.zeros((g, 4), np.float32)
+    mask = np.zeros((g,), bool)
+    out_labels = np.zeros((g,), np.int32)
+    n = min(len(boxes01_yxyx), g)
+    if n:
+        yx = boxes01_yxyx[:n]
+        boxes[:n, 0] = yx[:, 1] * (nw - 1)
+        boxes[:n, 1] = yx[:, 0] * (nh - 1)
+        boxes[:n, 2] = yx[:, 3] * (nw - 1)
+        boxes[:n, 3] = yx[:, 2] * (nh - 1)
+        mask[:n] = True
+        out_labels[:n] = labels[:n]
+    img = pad_to_bucket(img, pick_bucket(nh, nw, cfg["tpu_image_buckets"]))
+    return img, np.asarray([nh, nw], np.int32), boxes, mask, out_labels
 
 
 def preprocess_eval_image(

@@ -1,5 +1,5 @@
 """What the port's two detectors share: device placement, seeded random
-weights and the serving entry points.
+weights, the freeze policy and the serving entry points.
 
 - `predict(image, image_hw)` -> padded `Detections` for one image.
 - `im_detect(image, image_hw, scale)` / `im_detect_batch(images, image_hw,
@@ -11,10 +11,13 @@ A subclass builds its modules, calls `_place(seed)`, and defines
 roi_softmax [B, R, C], roi_deltas [B, R, C, 4])` and `min_edge`, the
 smallest box side `predict` keeps.
 
-Serving is float32 with TF32 off: on a CUDA device `_place` sets
-`torch.backends.cudnn.allow_tf32` and `torch.backends.cuda.matmul.allow_tf32`
-to False for the process. Entry points run on the card unless the caller
-asks for the CPU; asking for CUDA where there is none raises.
+Serving and training are float32 with TF32 off: on a CUDA device `_place`
+sets `torch.backends.cudnn.allow_tf32` and
+`torch.backends.cuda.matmul.allow_tf32` to False for the process. `_place`
+also marks the frozen parameters (`models/freeze.py`). Entry points run on
+the card unless the caller asks for the CPU; asking for CUDA where there is
+none raises. The serving entry points run under `torch.inference_mode`; a
+training loss (`loss_fn`) does not.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
+from tf_eager_object_detection_tpu_torch.models.freeze import freeze_
 from tf_eager_object_detection_tpu_torch.ops.prediction import Detections, post_ops_prediction
 
 __all__ = ["ServingDetector", "resolve_device", "RESNET_DEPTHS"]
@@ -70,14 +74,16 @@ class ServingDetector(nn.Module):
 
     @torch.no_grad()
     def _place(self, seed: int) -> None:
-        """Seeded random init (normal draws from a CPU torch.Generator), then
-        move to `self.device` and switch to eval."""
+        """Seeded random init (normal draws from a CPU torch.Generator), the
+        freeze policy, then move to `self.device` and switch to eval (no
+        layer of the port behaves differently in training)."""
         gen = torch.Generator().manual_seed(seed)
         for name, mod in self.named_modules():
             if isinstance(mod, (nn.Conv2d, nn.Linear)):
                 std = self._init_std(name, mod.weight[0].numel())
                 mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen) * std)
                 mod.bias.zero_()
+        freeze_(self)
         self.to(self.device).eval()
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False

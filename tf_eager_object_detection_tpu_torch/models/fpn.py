@@ -1,4 +1,4 @@
-"""FPN detector (ResNet-50/101/152), serving path
+"""FPN detector (ResNet-50/101/152), serving and training
 (port of `tf_eager_object_detection_tpu/models/fpn.py`).
 
 - extractor: multi-output ResNet (c2..c5, conv5 inside the extractor);
@@ -9,8 +9,16 @@
 - level assignment floor(4 + log2(sqrt(wh) / 224)) clamped to
   [min_level, max_level]; every roi is sampled from its own level by the
   fused-pyramid RoIAlign (`ops/roi_align.py::roi_align_multilevel`, the
-  CUDA kernel `csrc/roi_align.cu` on the card), then 2x2 SAME max pool;
-- RoI head: NHWC flatten -> fc1024 -> fc1024 -> score and box heads.
+  CUDA kernels K4 / K5 on the card) or, with `tpu_roi_align_fused_levels`
+  False, by one single-level RoIAlign per level, summed (K2 / K3); then
+  2x2 SAME max pool;
+- RoI head: NHWC flatten -> fc1024 -> fc1024 -> score and box heads, with
+  no dropout in training either (as in JAX).
+
+`loss_fn` is the training loss: RPN targets over every anchor and RoI
+targets over the training proposals (both under `torch.no_grad()`, with
+random draws from `ops/sampling.py::TrainDraws`), then the four losses and
+the sample counts under the JAX metric names.
 
 Invalid proposal slots (`roi_valid` False) get zero RoI features, so their
 rows of `im_detect_batch` differ from the JAX detector's, which crops them
@@ -33,8 +41,18 @@ from tf_eager_object_detection_tpu_torch.models.backbones.resnet import ResNetBa
 from tf_eager_object_detection_tpu_torch.models.detector import RESNET_DEPTHS, ServingDetector
 from tf_eager_object_detection_tpu_torch.models.heads import RpnHead
 from tf_eager_object_detection_tpu_torch.models.layers import SameConv2d
+from tf_eager_object_detection_tpu_torch.ops.losses import cls_loss, smooth_l1_loss
 from tf_eager_object_detection_tpu_torch.ops.region_proposal import region_proposal
-from tf_eager_object_detection_tpu_torch.ops.roi_align import max_pool_2x2_same, roi_align_multilevel
+from tf_eager_object_detection_tpu_torch.ops.roi_align import (
+    max_pool_2x2_same,
+    roi_align_multilevel,
+    roi_align_single_level,
+)
+from tf_eager_object_detection_tpu_torch.ops.sampling import (
+    TrainDraws,
+    anchor_target,
+    proposal_target,
+)
 
 __all__ = ["FPNDetector", "ResnetFpnNeck", "FpnRoiHead", "resize_bilinear_tf1"]
 
@@ -52,8 +70,11 @@ def _tf1_interp_matrix(out_size: int, in_size: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def _interp_matrix_on(out_size: int, in_size: int, device: torch.device) -> torch.Tensor:
-    """`_tf1_interp_matrix` as a tensor on `device`, copied there once."""
-    return torch.from_numpy(_tf1_interp_matrix(out_size, in_size)).to(device)
+    """`_tf1_interp_matrix` as a tensor on `device`, copied there once; a
+    normal tensor even when first asked for under `torch.inference_mode`
+    (serving), so that a training step can save it for its backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_tf1_interp_matrix(out_size, in_size)).to(device)
 
 
 def _resize_nchw(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -145,6 +166,8 @@ class FPNDetector(ServingDetector):
         self.roi_head = FpnRoiHead(self.num_classes, pool * pool * dims)
         self._anchor_cache: dict = {}
         self._place(seed)
+        # the samplers' draws when loss_fn is given none
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     def _init_std(self, name: str, fan_in: int) -> float:
         if name.startswith("neck."):
@@ -153,7 +176,8 @@ class FPNDetector(ServingDetector):
 
     # --------------------------------------------------------------- anchors
     def anchors_for_grids(self, grids) -> torch.Tensor:
-        """grids: (gh, gw) per level -> [A_total, 4], levels concatenated."""
+        """grids: (gh, gw) per level -> [A_total, 4], levels concatenated
+        (cached as a normal tensor, as `_interp_matrix_on`)."""
         key = tuple(grids)
         if key not in self._anchor_cache:
             per_level = [
@@ -161,9 +185,10 @@ class FPNDetector(ServingDetector):
                                    gh, gw, self.strides[i])
                 for i, (gh, gw) in enumerate(grids)
             ]
-            self._anchor_cache[key] = torch.as_tensor(
-                np.concatenate(per_level, axis=0), device=self.device
-            )
+            with torch.inference_mode(False):
+                self._anchor_cache[key] = torch.as_tensor(
+                    np.concatenate(per_level, axis=0), device=self.device
+                )
         return self._anchor_cache[key]
 
     def _level_valid_mask(self, grids, image_hw: torch.Tensor) -> torch.Tensor:
@@ -185,27 +210,32 @@ class FPNDetector(ServingDetector):
             bbox_list.append(b.float())
         return p_list, score_list, bbox_list
 
-    def _proposals(self, score_list, bbox_list, image_hw):
-        """Batched test-time proposals over the level concatenation.
-
-        Scores are [A, 2] per cell (reshape(-1, 2)), not class-major as in
-        Faster R-CNN."""
-        cfg = self.cfg
-        b = image_hw.shape[0]
-        grids = [(s.shape[1], s.shape[2]) for s in score_list]
+    @staticmethod
+    def _flatten_levels(score_list, bbox_list):
+        """Per-level maps -> (scores [B, A_total, 2], deltas [B, A_total, 4],
+        grids). Scores are [A, 2] per cell (reshape(-1, 2)), not class-major
+        as in Faster R-CNN."""
+        b = score_list[0].shape[0]
+        grids = tuple((s.shape[1], s.shape[2]) for s in score_list)
         scores2 = torch.cat([s.reshape(b, -1, 2) for s in score_list], dim=1)
         deltas = torch.cat([d.reshape(b, -1, 4) for d in bbox_list], dim=1)
-        probs = torch.softmax(scores2, dim=-1)[..., 1]
+        return scores2, deltas, grids
+
+    def _proposals(self, scores2, deltas, grids, image_hw, training: bool = False):
+        """Batched proposals over the level concatenation, at the test or the
+        training sizes."""
+        cfg = self.cfg
+        phase = "train" if training else "test"
         return region_proposal(
             deltas,
             self.anchors_for_grids(grids),
-            probs,
+            torch.softmax(scores2, dim=-1)[..., 1],
             self._level_valid_mask(grids, image_hw),
             image_hw[:, 0],
             image_hw[:, 1],
-            num_post_nms=cfg["rpn_proposal_test_after_nms_sample_number"],
+            num_post_nms=cfg[f"rpn_proposal_{phase}_after_nms_sample_number"],
             nms_iou_threshold=cfg["rpn_proposal_nms_iou_threshold"],
-            num_pre_nms=min(cfg["rpn_proposal_test_pre_nms_sample_number"], deltas.shape[1]),
+            num_pre_nms=min(cfg[f"rpn_proposal_{phase}_pre_nms_sample_number"], deltas.shape[1]),
             target_means=cfg["rpn_proposal_means"],
             target_stds=cfg["rpn_proposal_stds"],
             clip_deltas=self.clip_deltas,
@@ -222,10 +252,15 @@ class FPNDetector(ServingDetector):
     def _roi_features(self, p_list, rois, roi_valid, image_hw):
         """Level-assigned RoIAlign of p2..p5, pooled: [B, N, P, P, C]."""
         n = self.max_level - self.min_level + 1
-        crops = roi_align_multilevel(
-            p_list[:n], rois, self._roi_levels(rois) - self.min_level, roi_valid,
-            image_hw[:, 0], image_hw[:, 1], 2 * self.cfg["roi_pooling_size"], self.strides[:n],
-        )
+        levels = self._roi_levels(rois) - self.min_level
+        ih, iw = image_hw[:, 0], image_hw[:, 1]
+        crop = 2 * self.cfg["roi_pooling_size"]
+        if self.cfg.get("tpu_roi_align_fused_levels", True):
+            crops = roi_align_multilevel(p_list[:n], rois, levels, roi_valid, ih, iw, crop,
+                                         self.strides[:n])
+        else:
+            crops = sum(roi_align_single_level(p_list[k], rois, (levels == k) & roi_valid, ih, iw,
+                                               crop, self.strides[k]) for k in range(n))
         return max_pool_2x2_same(crops)
 
     def _roi_head(self, roi_feats):
@@ -236,6 +271,81 @@ class FPNDetector(ServingDetector):
 
     def _detect(self, images, image_hw):
         p_list, score_list, bbox_list = self._backbone_neck_rpn(images)
-        rois, roi_valid = self._proposals(score_list, bbox_list, image_hw)
+        rois, roi_valid = self._proposals(*self._flatten_levels(score_list, bbox_list), image_hw)
         roi_feats = self._roi_features(p_list, rois, roi_valid, image_hw)
         return (rois, roi_valid, *self._roi_head(roi_feats))
+
+    # ------------------------------------------------------------------ loss
+    def loss_fn(self, images, image_hw, gt_boxes, gt_mask, gt_labels, draws=None):
+        """One training batch -> (total loss, metrics).
+
+        images [B, Hp, Wp, 3]; image_hw [B, 2]; gt_boxes [B, G, 4] xyxy
+        pixels with gt_mask [B, G] and gt_labels [B, G] (class ids >= 1);
+        numpy or tensors. `draws` is the samplers' `TrainDraws`, or a
+        `torch.Generator` on the detector's device to draw them from, or None
+        for the detector's own `generator`. Metrics (0-dim tensors, read
+        nothing back): rpn_cls_loss, rpn_reg_loss, roi_cls_loss,
+        roi_reg_loss, total_loss, and the per-image means of num_proposals,
+        num_rpn_fg, num_rpn_bg, num_roi_fg.
+        """
+        cfg = self.cfg
+        images, image_hw = self._as_inputs(images, image_hw)
+        gt_boxes = torch.as_tensor(gt_boxes, dtype=torch.float32, device=self.device)
+        gt_mask = torch.as_tensor(gt_mask, device=self.device).bool()
+        gt_labels = torch.as_tensor(gt_labels, device=self.device).long()
+        b = images.shape[0]
+        s = cfg["roi_total_sample_number"]
+        h, w = image_hw[:, 0], image_hw[:, 1]
+
+        p_list, score_list, bbox_list = self._backbone_neck_rpn(images)
+        scores2, deltas, grids = self._flatten_levels(score_list, bbox_list)
+        anchors = self.anchors_for_grids(grids)
+        if not isinstance(draws, TrainDraws):
+            draws = TrainDraws.sample(
+                self.generator if draws is None else draws, b, anchors.shape[0],
+                cfg["rpn_proposal_train_after_nms_sample_number"], s,
+            )
+        with torch.no_grad():  # proposals and targets carry no gradient
+            rois, roi_valid = self._proposals(scores2, deltas, grids, image_hw, training=True)
+            at = anchor_target(
+                anchors, gt_boxes, gt_mask, h, w, draws.anchor_fg, draws.anchor_bg,
+                pos_iou_threshold=cfg["rpn_pos_iou_threshold"],
+                neg_iou_threshold=cfg["rpn_neg_iou_threshold"],
+                total_num_samples=cfg["rpn_total_sample_number"],
+                max_pos_samples=cfg["rpn_pos_sample_max_number"],
+                target_means=tuple(cfg["rpn_proposal_means"]),
+                target_stds=tuple(cfg["rpn_proposal_stds"]),
+            )
+            pt = proposal_target(
+                rois, roi_valid, gt_boxes, gt_mask, gt_labels,
+                draws.roi_fg, draws.roi_bg, draws.roi_bg_gumbel,
+                num_classes=self.num_classes,
+                pos_iou_threshold=cfg["roi_pos_iou_threshold"],
+                neg_iou_threshold=cfg["roi_neg_iou_threshold"],
+                total_num_samples=s,
+                max_pos_samples=cfg["roi_pos_sample_max_number"],
+                target_means=tuple(cfg["roi_proposal_means"]),
+                target_stds=tuple(cfg["roi_proposal_stds"]),
+                strict_class_column=bool(cfg.get("strict_reference_parity", False)),
+            )
+        rpn_cls = cls_loss(scores2, at.labels, at.labels >= 0).mean()
+        rpn_reg = smooth_l1_loss(deltas, at.bbox_targets, at.in_weights, at.out_weights,
+                                 sigma=cfg["rpn_sigma"], dim=(1, 2))
+
+        # every sampled slot is cropped, as in JAX (no validity mask)
+        roi_feats = self._roi_features(p_list, pt.rois, torch.ones_like(pt.valid), image_hw)
+        roi_scores, roi_deltas = self.roi_head(roi_feats.reshape(b * s, *roi_feats.shape[2:]))
+        roi_cls = cls_loss(roi_scores, pt.labels.reshape(-1))
+        roi_reg = smooth_l1_loss(roi_deltas, pt.bbox_targets.reshape(b * s, -1),
+                                 pt.in_weights.reshape(b * s, -1),
+                                 pt.out_weights.reshape(b * s, -1),
+                                 sigma=cfg["roi_sigma"], dim=(1,))
+        metrics = {"rpn_cls_loss": rpn_cls, "rpn_reg_loss": rpn_reg,
+                   "roi_cls_loss": roi_cls, "roi_reg_loss": roi_reg}
+        total = sum(metrics.values())
+        metrics["total_loss"] = total
+        counts = {"num_proposals": roi_valid, "num_rpn_fg": at.labels == 1,
+                  "num_rpn_bg": at.labels == 0, "num_roi_fg": pt.labels > 0}
+        for k, v in counts.items():
+            metrics[k] = v.float().sum(dim=-1).mean()
+        return total, metrics

@@ -54,7 +54,8 @@ class CudaKernel:
     """A library of `csrc/` with one launch function, its build record and
     its launch count.
 
-    A subclass names the library (`name`), its sources, the C launch
+    A subclass names the library (`name`), its sources (headers included,
+    so that a changed header rebuilds), the C launch
     function (`entry`, returning a cudaError_t as int) and its ctypes
     argument types, and the function that names an error code. `launch`
     calls the entry point, raises if it returns an error, and otherwise
@@ -102,6 +103,7 @@ class CudaKernel:
 def build_library(name: str, sources: list[str]) -> tuple[ctypes.CDLL, dict]:
     """Compile `csrc/<sources>` into one shared library and load it.
 
+    Headers (`.cuh`) among the sources are hashed with them, not compiled.
     Returns (library, info) where info has the library path, whether it was
     built in this call, the build seconds and the compiler's output
     (ptxas register and shared-memory report).
@@ -117,7 +119,7 @@ def build_library(name: str, sources: list[str]) -> tuple[ctypes.CDLL, dict]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, paths)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(p) for p in paths if p.suffix == ".cu")]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         info["seconds"] = time.perf_counter() - t0

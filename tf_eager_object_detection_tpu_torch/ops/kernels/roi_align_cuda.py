@@ -1,12 +1,16 @@
-"""ctypes wrapper of the CUDA fused-pyramid RoIAlign kernel (`csrc/roi_align.cu`).
+"""ctypes wrappers of the CUDA RoIAlign forward kernel (`csrc/roi_align.cu`).
 
-`ROI_ALIGN_KERNEL(p_list, rois, levels, valid, image_height, image_width,
-crop_size, strides)` launches the kernel on PyTorch's current stream and
-returns the [B, N, S, S, C] crops. It builds the library on its first call
-and counts its launches in `ROI_ALIGN_KERNEL.launches`. It takes CUDA
-tensors only; the plain PyTorch version lives beside its caller in
-`ops/roi_align.py`. The image extents must fit the planes (a sample is
-clamped to the image's last valid cell, which must lie on the plane).
+- `ROI_ALIGN_KERNEL(p_list, rois, levels, valid, image_height, image_width,
+  crop_size, strides)`: the fused-pyramid forward (K4) -> [B, N, S, S, C].
+- `ROI_ALIGN_SINGLE_KERNEL`: the same kernel, launched by
+  `ops/roi_align.py::roi_align_single_level` with one plane (K2).
+
+The backward wrappers (K5, K3) are in `roi_align_backward_cuda.py`. Each
+launches on PyTorch's current stream, builds its library on first use
+and counts its own launches in `.launches`. They take CUDA tensors only; the
+plain PyTorch versions live beside their callers in `ops/roi_align.py`. The
+image extents must fit the planes (a sample is clamped to the image's last
+valid cell, which must lie on the plane).
 """
 
 from __future__ import annotations
@@ -18,19 +22,22 @@ import torch
 
 from tf_eager_object_detection_tpu_torch.ops.kernels.build import CudaKernel, device_and_stream
 
-__all__ = ["CudaRoiAlign", "ROI_ALIGN_KERNEL"]
+__all__ = ["CudaRoiAlign", "ROI_ALIGN_KERNEL", "ROI_ALIGN_SINGLE_KERNEL"]
 
 _MAX_LEVELS = 8  # kMaxLevels of the source
 _MAX_CROP = 64  # kMaxCrop: shared-memory coordinate slots per axis
 
 
 class CudaRoiAlign(CudaKernel):
+    """The forward: `(p_list, rois, levels, valid, image_height, image_width,
+    crop_size, strides) -> [B, N, S, S, C]`."""
+
     name = "roi_align"
-    sources = ("roi_align.cu",)
+    sources = ("roi_align.cu", "roi_align_common.cuh")
     entry = "roi_align_multilevel_cuda"
     error_fn = "roi_align_error_string"
     argtypes = (
-        ctypes.POINTER(ctypes.c_void_p),  # plane pointers
+        ctypes.POINTER(ctypes.c_void_p),  # plane pointers (gradient planes for the backward)
         ctypes.POINTER(ctypes.c_int),  # heights
         ctypes.POINTER(ctypes.c_int),  # widths
         ctypes.POINTER(ctypes.c_float),  # strides
@@ -44,7 +51,7 @@ class CudaRoiAlign(CudaKernel):
         ctypes.c_int,  # n
         ctypes.c_int,  # c
         ctypes.c_int,  # crop
-        ctypes.c_void_p,  # out
+        ctypes.c_void_p,  # out (grad_out for the backward)
         ctypes.c_int,  # device
         ctypes.c_void_p,  # stream
     )
@@ -89,6 +96,30 @@ class CudaRoiAlign(CudaKernel):
         if not all(t.is_contiguous() for t in tensors):
             raise ValueError("CUDA RoIAlign takes contiguous tensors")
 
+    def _launch(self, p_list, rois, levels, valid, image_height, image_width, crop_size,
+                strides, out) -> None:
+        """Launches on checked arguments, `out` as the last data pointer."""
+        b, n, _ = rois.shape
+        nl = len(p_list)
+        self.launch(
+            (ctypes.c_void_p * nl)(*[p.data_ptr() for p in p_list]),
+            (ctypes.c_int * nl)(*[p.shape[1] for p in p_list]),
+            (ctypes.c_int * nl)(*[p.shape[2] for p in p_list]),
+            (ctypes.c_float * nl)(*[float(s) for s in strides]),
+            nl,
+            rois.data_ptr(),
+            levels.data_ptr(),
+            valid.data_ptr(),
+            image_height.data_ptr(),
+            image_width.data_ptr(),
+            b,
+            n,
+            p_list[0].shape[-1],
+            int(crop_size),
+            out.data_ptr(),
+            *device_and_stream(rois.device),
+        )
+
     def __call__(
         self,
         p_list: Sequence[torch.Tensor],
@@ -106,29 +137,12 @@ class CudaRoiAlign(CudaKernel):
         p_list = list(p_list)
         self._check(p_list, rois, levels, valid, image_height, image_width, crop_size, strides)
         b, n, _ = rois.shape
-        c = p_list[0].shape[-1]
-        nl = len(p_list)
-        out = torch.empty((b, n, crop_size, crop_size, c), dtype=torch.float32,
-                          device=rois.device)
-        self.launch(
-            (ctypes.c_void_p * nl)(*[p.data_ptr() for p in p_list]),
-            (ctypes.c_int * nl)(*[p.shape[1] for p in p_list]),
-            (ctypes.c_int * nl)(*[p.shape[2] for p in p_list]),
-            (ctypes.c_float * nl)(*[float(s) for s in strides]),
-            nl,
-            rois.data_ptr(),
-            levels.data_ptr(),
-            valid.data_ptr(),
-            image_height.data_ptr(),
-            image_width.data_ptr(),
-            b,
-            n,
-            c,
-            int(crop_size),
-            out.data_ptr(),
-            *device_and_stream(rois.device),
-        )
+        out = torch.empty((b, n, crop_size, crop_size, p_list[0].shape[-1]),
+                          dtype=torch.float32, device=rois.device)
+        self._launch(p_list, rois, levels, valid, image_height, image_width, crop_size, strides,
+                     out)
         return out
 
 
-ROI_ALIGN_KERNEL = CudaRoiAlign()
+ROI_ALIGN_KERNEL = CudaRoiAlign()  # K4
+ROI_ALIGN_SINGLE_KERNEL = CudaRoiAlign()  # K2: one plane

@@ -11,9 +11,12 @@ TF crop_and_resize sampling rule (crop size S > 1):
   y_i outside [0, H-1] (same for x).
 
 `roi_align_multilevel` is FPN's RoIAlign: every roi sampled from its own
-pyramid level. A CUDA tensor goes to the hand-written kernel
-(`csrc/roi_align.cu`), a CPU tensor to `roi_align_multilevel_reference`,
-the plain PyTorch version of the same function.
+pyramid level; `roi_align_single_level` samples one level for the rois it
+marks active. Both are differentiable in the planes (not in rois, levels or
+masks, as in JAX). A CUDA tensor goes to the hand-written kernels behind a
+`torch.autograd.Function` (`csrc/roi_align.cu` forward, K4 / K2;
+`csrc/roi_align_backward.cu` backward, K5 / K3), a CPU tensor to the plain
+PyTorch versions (`*_reference`), whose gradients are autograd's.
 """
 
 from __future__ import annotations
@@ -24,7 +27,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_cuda import ROI_ALIGN_KERNEL
+from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_backward_cuda import (
+    ROI_ALIGN_BACKWARD_KERNEL,
+    ROI_ALIGN_SINGLE_BACKWARD_KERNEL,
+)
+from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_cuda import (
+    ROI_ALIGN_KERNEL,
+    ROI_ALIGN_SINGLE_KERNEL,
+)
 
 __all__ = [
     "crop_and_resize",
@@ -34,6 +44,11 @@ __all__ = [
     "level_sample_coords",
     "roi_align_multilevel",
     "roi_align_multilevel_reference",
+    "roi_align_multilevel_reference_backward",
+    "roi_align_single_level",
+    "roi_align_single_level_reference",
+    "RoIAlignMultilevel",
+    "RoIAlignSingleLevel",
 ]
 
 # Samples within this distance outside [0, size-1] still count as inside, as
@@ -219,6 +234,92 @@ def roi_align_multilevel_reference(
     return total
 
 
+def roi_align_multilevel_reference_backward(
+    grad: torch.Tensor,
+    p_list: Sequence[torch.Tensor],
+    rois: torch.Tensor,
+    levels: torch.Tensor,
+    valid: torch.Tensor,
+    image_height: torch.Tensor,
+    image_width: torch.Tensor,
+    crop_size: int,
+    strides: Sequence[int],
+) -> list[torch.Tensor]:
+    """Plain version of the fused-pyramid backward (TPU kernel `_ml_bwd_kernel`):
+    the gradient of `roi_align_multilevel_reference` with respect to each
+    plane for the output gradient `grad` [B, N, S, S, C], by autograd. Only
+    the planes' shapes matter (the function is linear in them)."""
+    with torch.enable_grad():
+        planes = [p.detach().float().requires_grad_() for p in p_list]
+        out = roi_align_multilevel_reference(
+            planes, rois, levels, valid, image_height, image_width, crop_size, strides
+        )
+        return list(torch.autograd.grad(out, planes, grad))
+
+
+def roi_align_single_level_reference(
+    features: torch.Tensor,
+    rois: torch.Tensor,
+    active: torch.Tensor,
+    image_height: torch.Tensor,
+    image_width: torch.Tensor,
+    crop_size: int,
+    level_stride: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the single-level RoIAlign (TPU kernel `_kernel`,
+    `pallas_roi_align_window` with `level_stride`): the fused-pyramid
+    reference with one plane; rois with `active` False give zeros."""
+    return roi_align_multilevel_reference(
+        [features], rois, torch.zeros_like(active, dtype=torch.long), active.bool(),
+        image_height, image_width, crop_size, (level_stride,),
+    )
+
+
+class RoIAlignMultilevel(torch.autograd.Function):
+    """K4 forward, K5 backward; the gradient goes to the planes only.
+
+    apply(rois, levels, valid, image_height, image_width, crop_size, strides,
+    *p_list) on CUDA tensors in the kernels' dtypes and layout.
+    """
+
+    @staticmethod
+    def forward(ctx, rois, levels, valid, image_height, image_width, crop_size, strides, *p_list):
+        ctx.save_for_backward(rois, levels, valid, image_height, image_width)
+        ctx.crop_size, ctx.strides = crop_size, tuple(strides)
+        ctx.shapes = [tuple(p.shape) for p in p_list]
+        return ROI_ALIGN_KERNEL(list(p_list), rois, levels, valid, image_height, image_width,
+                                crop_size, strides)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dfs = ROI_ALIGN_BACKWARD_KERNEL(grad.contiguous(), ctx.shapes, *ctx.saved_tensors,
+                                        ctx.crop_size, ctx.strides)
+        return (None,) * 7 + tuple(dfs)
+
+
+class RoIAlignSingleLevel(torch.autograd.Function):
+    """K2 forward, K3 backward; the gradient goes to the features only.
+
+    apply(features, rois, active, image_height, image_width, crop_size,
+    level_stride) on CUDA tensors in the kernels' dtypes and layout.
+    """
+
+    @staticmethod
+    def forward(ctx, features, rois, active, image_height, image_width, crop_size, level_stride):
+        levels = torch.zeros_like(active, dtype=torch.long)
+        ctx.save_for_backward(rois, levels, active, image_height, image_width)
+        ctx.crop_size, ctx.strides = crop_size, (level_stride,)
+        ctx.shape = tuple(features.shape)
+        return ROI_ALIGN_SINGLE_KERNEL([features], rois, levels, active, image_height,
+                                       image_width, crop_size, ctx.strides)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (df,) = ROI_ALIGN_SINGLE_BACKWARD_KERNEL(grad.contiguous(), [ctx.shape],
+                                                 *ctx.saved_tensors, ctx.crop_size, ctx.strides)
+        return (df,) + (None,) * 6
+
+
 def roi_align_multilevel(
     p_list: Sequence[torch.Tensor],
     rois: torch.Tensor,
@@ -231,22 +332,45 @@ def roi_align_multilevel(
 ) -> torch.Tensor:
     """Fused-pyramid RoIAlign -> [B, N, S, S, C] float32 (see the reference).
 
-    CUDA tensors launch the kernel (and raise if it fails); CPU tensors take
-    `roi_align_multilevel_reference`.
+    CUDA tensors launch the kernels (and raise if one fails); CPU tensors
+    take `roi_align_multilevel_reference`. Either way no gradient reaches
+    the rois, as in JAX (`stop_gradient`).
     """
     if rois.device.type == "cuda":
-        return ROI_ALIGN_KERNEL(
-            [p.float().contiguous() for p in p_list],
-            rois.float().contiguous(),
-            levels.long().contiguous(),
-            valid.contiguous(),
-            image_height.float().contiguous(),
-            image_width.float().contiguous(),
-            crop_size,
-            strides,
+        return RoIAlignMultilevel.apply(
+            rois.detach().float().contiguous(), levels.long().contiguous(),
+            valid.bool().contiguous(), image_height.float().contiguous(),
+            image_width.float().contiguous(), crop_size, tuple(strides),
+            *[p.float().contiguous() for p in p_list],
         )
     if rois.device.type == "cpu":
         return roi_align_multilevel_reference(
-            p_list, rois, levels, valid, image_height, image_width, crop_size, strides
+            p_list, rois.detach(), levels, valid, image_height, image_width, crop_size, strides
+        )
+    raise ValueError(f"no RoIAlign for device {rois.device}")
+
+
+def roi_align_single_level(
+    features: torch.Tensor,
+    rois: torch.Tensor,
+    active: torch.Tensor,
+    image_height: torch.Tensor,
+    image_width: torch.Tensor,
+    crop_size: int,
+    level_stride: int,
+) -> torch.Tensor:
+    """Single-level RoIAlign (port of `pallas_roi_align_window` with
+    `level_stride`) -> [B, N, S, S, C] float32; rois with `active` False give
+    zeros. CUDA tensors launch the kernels, CPU tensors take
+    `roi_align_single_level_reference`."""
+    if rois.device.type == "cuda":
+        return RoIAlignSingleLevel.apply(
+            features.float().contiguous(), rois.detach().float().contiguous(),
+            active.bool().contiguous(), image_height.float().contiguous(),
+            image_width.float().contiguous(), crop_size, int(level_stride),
+        )
+    if rois.device.type == "cpu":
+        return roi_align_single_level_reference(
+            features, rois.detach(), active, image_height, image_width, crop_size, level_stride
         )
     raise ValueError(f"no RoIAlign for device {rois.device}")

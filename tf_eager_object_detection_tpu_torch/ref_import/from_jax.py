@@ -10,7 +10,10 @@ writes to `.npz` (flax `flatten_dict(sep="/")`). Read with numpy alone.
   of the same names.
 
 Any leaf that the port has no slot for, or any slot that no leaf fills,
-raises.
+raises. Trees shaped like the parameters (gradients, momentum traces) cross
+with the same layout rules (`parameter_tree_from_jax`), without the
+BatchNorm leaves: in the port those are frozen buffers, with no gradient
+and no trace.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["read_flat_params", "state_dict_from_jax", "load_jax_params"]
+__all__ = ["read_flat_params", "state_dict_from_jax", "load_jax_params",
+           "parameter_tree_from_jax"]
 
 _BN_LEAVES = ("gamma", "beta", "moving_mean", "moving_variance")
 
@@ -76,3 +80,11 @@ def load_jax_params(model: nn.Module, params: Mapping[str, np.ndarray] | str | o
                 f"{tuple(expected[name].shape)} in the port"
             )
     model.load_state_dict(converted, strict=True)
+
+
+def parameter_tree_from_jax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """A flat flax tree shaped like the parameters (gradients, momentum
+    traces) -> {port parameter name: tensor}, BatchNorm leaves dropped."""
+    return state_dict_from_jax(
+        {k: v for k, v in flat.items() if k.rsplit("/", 1)[-1] not in _BN_LEAVES}
+    )
