@@ -14,22 +14,33 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    Faster R-CNN shapes ([1, 6000] -> 300 for `predict`, [4, 6000] -> 300 for
    a served batch, [20, 300] -> 50 per class), the FPN shapes ([4, 6000] ->
    1000, [20, 1000] -> 50) and a cluster-heavy fixture with padded slots
-   ([1, 12000] -> 2000, the training RPN NMS); times from CUDA events.
+   ([1, 12000] -> 2000, the training RPN NMS). Kernel times come from
+   CUDA-graph replays (`graph_ms`: the wrappers' host work is not replayed,
+   so a kernel shorter than its launch is still timed by the card), the
+   plain versions' from CUDA events around their calls. Then the
+   word-blocked scan's edge cases, index-exact: the cap inside a word and
+   at a word's end, K not a multiple of 64, K = 1, every slot invalid,
+   every box identical, no overlaps with the cap reached early or never,
+   IoUs exactly at the threshold.
 4. K4, the fused-pyramid RoIAlign kernel, against its plain version within
    atol/rtol 1e-5 on N(0, 1) features: the served shape (B=4, N=1000, the
    four planes of a 640x1024 bucket, image extents below the bucket), the
-   `predict` shape (B=1) and a fixture with invalid rois, rois on the valid
-   extent's edge and a roi of aspect > 10; times of the kernel, the plain
-   version (one image at a time) and, as a near-equivalent reference only,
-   `grid_sample` over the four levels.
+   `predict` shape (B=1), a fixture with invalid rois, rois on the valid
+   extent's edge and a roi of aspect > 10, the training shape (B=1,
+   N=256), C = 42 (not a multiple of 4) and planes 4 bytes off a 16-byte
+   boundary (both on the kernel's scalar path); times of the kernel, the
+   plain version (one image at a time) and, as a near-equivalent reference
+   only, `grid_sample` over the four levels.
 5. K5 (the fused-pyramid backward), K3 (the single-level backward, one
    launch per level) and K2 (the single-level forward, one launch per level)
    against their plain versions at the stock training shape (B=1, N=256),
    at B=4, and on an overlap-heavy and an edge / invalid / aspect-30
    fixture: each backward cell within 1e-5 of sum |g * w| over its terms
    (float atomics add in no fixed order), K2 within atol/rtol 1e-5; errors,
-   times, bounds and atomic counts; `grid_sample` (its autograd backward
-   for K5 / K3) per level as a near-equivalent reference only.
+   times (K2 from graph replays; K5 / K3, each longer than its launch, from
+   CUDA events around their calls), bounds and atomic counts; `grid_sample`
+   (its autograd backward for K5 / K3) per level as a near-equivalent
+   reference only.
 6. Faster R-CNN ResNet-50 serving, then FPN ResNet-50 serving, each at full
    width with seeded random weights and the stock Pascal config: 8 synthetic
    VOC-sized requests through `preprocess_eval_image` -> `batched_im_detect`
@@ -84,6 +95,7 @@ from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_backward_cuda imp
 from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_cuda import (
     ROI_ALIGN_KERNEL,
     ROI_ALIGN_SINGLE_KERNEL,
+    vectorizable,
 )
 from tf_eager_object_detection_tpu_torch.ops.prediction import post_ops_prediction
 from tf_eager_object_detection_tpu_torch.ops.sampling import TrainDraws
@@ -103,6 +115,22 @@ NMS_CASES = [  # (name, batch, boxes, max_output, iou threshold)
     ("cluster_padded", 1, 12000, 2000, 0.7),
 ]
 NMS_MAIN = "fpn_rpn_batch"
+# edge cases of the word-blocked scan (64 boxes a word), index-exact, not timed:
+# (name, batch, boxes, max_output, iou threshold, fixture)
+NMS_EDGE_CASES = [
+    ("cap_mid_word", 1, 300, 37, 0.5, "cluster"),
+    ("cap_at_word_boundary", 1, 256, 128, 0.5, "disjoint"),  # 128th kept = last of word 1
+    ("k_not_word_multiple", 2, 201, 150, 0.6, "cluster"),
+    ("k_one", 1, 1, 1, 0.5, "cluster"),
+    ("all_invalid", 1, 130, 20, 0.5, "invalid"),
+    ("all_identical", 1, 200, 50, 0.7, "identical"),  # one kept
+    ("no_overlaps_cap_early", 1, 500, 100, 0.3, "disjoint"),
+    ("no_overlaps_cap_beyond_k", 3, 700, 1000, 0.3, "disjoint"),
+    # integer boxes on a small grid: many IoUs fall exactly on the threshold
+    ("threshold_ties_half", 2, 500, 300, 0.5, "grid"),
+    ("threshold_ties_third", 2, 500, 300, 1.0 / 3.0, "grid"),
+    ("threshold_ties_0.7", 2, 500, 300, 0.7, "grid"),
+]
 FPN_STRIDES = (4, 8, 16, 32)
 FPN_BUCKET = (640, 1024)
 CROP = 14
@@ -162,6 +190,32 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 5, replays: int = 4) -> float:
+    """Device time of one `fn()`: `calls` calls captured in a CUDA graph,
+    replayed `replays` times between CUDA events. The wrappers' host work
+    (argument checks, ctypes) runs once, at capture, so a kernel shorter
+    than its host-side launch is timed by the card, not by the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) / (replays * calls)
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     """(least ms on the card, what bounds it) for work that moves `nbytes` and
     does `ops` float32 operations."""
@@ -202,6 +256,27 @@ def nms_fixture(rng, b, k, cluster=0.4, invalid=0.1):
     return boxes, valid
 
 
+def nms_edge_fixture(rng, b, k, kind):
+    """Boxes and validity of an edge case: `cluster` as `nms_fixture`;
+    `disjoint` a grid of 10x10 boxes 20 px apart (no pair overlaps);
+    `identical` one box repeated; `invalid` every slot off; `grid` boxes
+    with integer corners in [0, 12) (IoUs with small denominators)."""
+    if kind in ("cluster", "invalid"):
+        boxes, valid = nms_fixture(rng, b, max(k, 64))  # 64 cluster centers
+        return boxes[:, :k], valid[:, :k] & (kind == "cluster")
+    if kind == "grid":
+        lo = rng.randint(0, 8, (b, k, 2))
+        return (np.concatenate([lo, lo + rng.randint(1, 5, (b, k, 2))], -1).astype(np.float32),
+                np.ones((b, k), bool))
+    p = np.arange(k)
+    if kind == "disjoint":
+        one = np.stack([(p % 50) * 20.0, (p // 50) * 20.0, (p % 50) * 20.0 + 10,
+                        (p // 50) * 20.0 + 10], -1)
+    else:
+        one = np.tile([40.0, 50.0, 140.0, 170.0], (k, 1))
+    return np.repeat(one[None], b, 0).astype(np.float32), np.ones((b, k), bool)
+
+
 def nms_bound(boxes, valid, alive, thr):
     """Bound of one NMS call on this data: each input and output byte once;
     the IoU tests greedy NMS needs here (every valid box against the kept
@@ -239,7 +314,7 @@ def check_nms_kernel(card):
                 f"{int((got != ref).sum())} slots")
         require(not bool((got & ~tv).any()) and int(kept.max()) <= max_out,
                 f"NMS kernel kept invalid slots or too many at {name}")
-        ms = cuda_ms(lambda: NMS_KERNEL(tb, tv, thr, max_out), iters=50)
+        ms = graph_ms(lambda: NMS_KERNEL(tb, tv, thr, max_out), calls=10)
         plain_ms = cuda_ms(
             lambda: nms_mod.nms_alive_sorted_reference(tb, tv, thr, max_out), iters=5, warmup=1
         )
@@ -249,6 +324,16 @@ def check_nms_kernel(card):
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})  ({card})")
         record[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by)
+    for name, b, k, max_out, thr, kind in NMS_EDGE_CASES:
+        boxes, valid = nms_edge_fixture(rng, b, k, kind)
+        tb = torch.from_numpy(boxes).cuda()
+        tv = torch.from_numpy(valid).cuda()
+        got = NMS_KERNEL(tb, tv, thr, max_out)
+        ref = nms_mod.nms_alive_sorted_reference(tb, tv, thr, max_out)
+        require(torch.equal(got, ref), f"NMS kernel differs from the plain version at {name}: "
+                f"{int((got != ref).sum())} slots")
+        print(f"nms edge case {name} [{b},{k}]->{max_out} @{thr}: index-exact, kept/row "
+              f"{got.sum(-1).tolist()}  ({card})")
     return record
 
 
@@ -284,6 +369,13 @@ def roi_fixture(rng, b, n, hws, c=256, invalid=0.02, special=False, overlap=Fals
     valid = rng.uniform(size=(b, n)) >= invalid
     t = [torch.from_numpy(a).cuda() for a in (rois, levels, valid, hws[:, 0], hws[:, 1])]
     return (planes, *t, CROP, FPN_STRIDES)
+
+
+def misaligned(args):
+    """The fixture with every plane a contiguous view 4 bytes past a 16-byte
+    boundary: the kernel takes it on its scalar path."""
+    planes = [torch.cat([p.new_zeros(1), p.flatten()])[1:].view(p.shape) for p in args[0]]
+    return (planes, *args[1:])
 
 
 def plain_per_image(args):
@@ -350,17 +442,23 @@ def grid_sample_levels(args):
 
 
 def check_roi_kernel(card):
-    """K4 vs its plain version; returns the served shape's record."""
+    """K4 vs its plain version; returns {case: record}."""
     rng = np.random.RandomState(1)
     cases = [
         ("served", roi_fixture(rng, BATCH, 1000, [[600, 800], [600, 1000], [576, 768], [640, 853]])),
         ("predict", roi_fixture(rng, 1, 1000, [[600, 800]])),
         ("edges_invalid_elongated", roi_fixture(rng, 2, 64, [[600, 1000], [500, 380]],
                                                 invalid=0.3, special=True)),
+        ("train_b1", roi_fixture(rng, 1, TRAIN_ROIS, [[600, 800]], invalid=0.0)),
+        ("channels_42", roi_fixture(rng, 2, 64, [[600, 1000], [500, 380]], c=42, invalid=0.3,
+                                    special=True)),
+        ("misaligned_planes", misaligned(roi_fixture(rng, 2, 64, [[600, 1000], [500, 380]],
+                                                     invalid=0.3, special=True))),
     ]
     record = {}
     for name, args in cases:
         got = ROI_ALIGN_KERNEL(*args)
+        path = "float4" if vectorizable(args[0], got) else "scalar"
         torch.cuda.synchronize()
         ref = plain_per_image(args)
         err = float((got - ref).abs().max())
@@ -371,12 +469,13 @@ def check_roi_kernel(card):
         require(not bool(got[~valid].any()), f"RoIAlign kernel: invalid rois not zero at {name}")
         require(bool(torch.isfinite(got).all()), f"RoIAlign kernel: non-finite at {name}")
         del ref
-        ms = cuda_ms(lambda: ROI_ALIGN_KERNEL(*args), iters=20)
+        ms = graph_ms(lambda: ROI_ALIGN_KERNEL(*args))
         plain_ms = cuda_ms(lambda: plain_per_image(args), iters=2, warmup=1)
         grid_ms = cuda_ms(grid_sample_levels(args), iters=10)
         bound_ms, bound_by = roi_bound(args)
         b, n = args[1].shape[:2]
-        print(f"roi_align {name} [B={b}, N={n}, C={args[0][0].shape[-1]}]: max_abs_err {err:.3g} "
+        print(f"roi_align {name} [B={b}, N={n}, C={args[0][0].shape[-1]}, {path} path]: "
+              f"max_abs_err {err:.3g} "
               f"(atol/rtol 1e-5), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), grid_sample x4 levels (near-equivalent "
               f"reference, not the same function) {grid_ms:.4f} ms  ({card})")
@@ -477,7 +576,7 @@ def check_backward(name, kernel, g, args_list, iters=20):
                 bound_by=bound_by, atomics=atomics)
 
 
-def check_forward(name, kernel, args_list, iters=20):
+def check_forward(name, kernel, args_list):
     """A forward kernel (one launch per element of `args_list`, summed) against
     the plain version within atol/rtol 1e-5. Returns the record."""
     got = sum(kernel(*a) for a in args_list)
@@ -488,7 +587,7 @@ def check_forward(name, kernel, args_list, iters=20):
             and bool(torch.isfinite(got).all()), f"{name} differs from the plain version: "
             f"max abs err {err}")
     del got, ref
-    ms = cuda_ms(lambda: [kernel(*a) for a in args_list], iters=iters)
+    ms = graph_ms(lambda: [kernel(*a) for a in args_list])
     plain_ms = cuda_ms(lambda: [plain_per_image(a) for a in args_list], iters=2, warmup=1)
     bounds = [roi_bound(a) for a in args_list]
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=sum(b[0] for b in bounds),

@@ -210,7 +210,7 @@ def test_chip_smoke_imports_only_the_port():
 
 def _port_sources():
     pkg = os.path.join(_ROOT, "tf_eager_object_detection_tpu_torch")
-    paths = [os.path.join(_ROOT, "chip_smoke.py")]
+    paths = [os.path.join(_ROOT, "chip_smoke.py"), os.path.join(_ROOT, "kernel_ab.py")]
     for d, _, files in os.walk(pkg):
         paths += [os.path.join(d, f) for f in sorted(files) if f.endswith(".py")]
     return sorted(paths)

@@ -53,6 +53,63 @@ def test_kernel_matches_plain_version(cuda, b, k, max_out, thr):
     assert int(got.sum(-1).max()) <= max_out
 
 
+def _disjoint(b, k):
+    """A grid of 10x10 boxes 20 px apart: no pair overlaps."""
+    p = np.arange(k)
+    one = np.stack([(p % 50) * 20.0, (p // 50) * 20.0, (p % 50) * 20.0 + 10,
+                    (p // 50) * 20.0 + 10], -1).astype(np.float32)
+    return np.repeat(one[None], b, 0), np.ones((b, k), bool)
+
+
+def _edge_case(name):
+    """(boxes, valid, thr, max_output) of the word-blocked scan's edge cases."""
+    rng = np.random.RandomState(len(name))
+    if name == "cap_mid_word":
+        return (*_fixture(rng, 1, 300), 0.5, 37)
+    if name == "cap_at_word_boundary":  # the 128th kept box is the last of word 1
+        return (*_disjoint(1, 256), 0.5, 128)
+    if name == "k_not_word_multiple":
+        return (*_fixture(rng, 2, 201), 0.6, 150)
+    if name == "k_one":
+        return (*_fixture(rng, 1, 1, invalid=0.0), 0.5, 1)
+    if name == "all_invalid":
+        boxes, valid = _fixture(rng, 1, 130)
+        return boxes, np.zeros_like(valid), 0.5, 20
+    if name == "all_identical":  # one kept: every later copy overlaps it
+        boxes = np.repeat(np.asarray([[[40, 50, 140, 170]]], np.float32), 200, 1)
+        return boxes, np.ones((1, 200), bool), 0.7, 50
+    if name == "no_overlaps_cap_early":
+        return (*_disjoint(1, 500), 0.3, 100)
+    if name == "no_overlaps_cap_beyond_k":  # every word resolved, no OR work
+        return (*_disjoint(3, 700), 0.3, 1000)
+    if name == "per_class_b20":
+        return (*_fixture(rng, 20, 300, invalid=0.2), 0.3, 50)
+    if name.startswith("threshold_ties"):  # integer boxes: many IoUs exactly at thr
+        lo = rng.randint(0, 8, (2, 500, 2))
+        boxes = np.concatenate([lo, lo + rng.randint(1, 5, (2, 500, 2))], -1).astype(np.float32)
+        thr = {"half": 0.5, "third": 1.0 / 3.0, "0.7": 0.7}[name.rsplit("_", 1)[1]]
+        return boxes, np.ones((2, 500), bool), thr, 300
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["cap_mid_word", "cap_at_word_boundary", "k_not_word_multiple",
+                                  "k_one", "all_invalid", "all_identical",
+                                  "no_overlaps_cap_early", "no_overlaps_cap_beyond_k",
+                                  "per_class_b20", "threshold_ties_half", "threshold_ties_third",
+                                  "threshold_ties_0.7"])
+def test_kernel_matches_plain_version_on_edge_cases(cuda, name):
+    boxes, valid, thr, max_out = _edge_case(name)
+    tb, tv = torch.from_numpy(boxes).to(cuda), torch.from_numpy(valid).to(cuda)
+    got = NMS_KERNEL(tb, tv, thr, max_out)
+    torch.cuda.synchronize()
+    ref = torch_nms.nms_alive_sorted_reference(tb, tv, thr, max_out)
+    assert torch.equal(got, ref)
+    expect_kept = {"all_invalid": 0, "all_identical": 1, "cap_at_word_boundary": 128,
+                   "no_overlaps_cap_early": 100, "no_overlaps_cap_beyond_k": 700, "k_one": 1}
+    if name in expect_kept:
+        assert got.sum(-1).tolist() == [expect_kept[name]] * boxes.shape[0]
+
+
 def test_kernel_rejects_bad_inputs(cuda):
     boxes = torch.zeros(1, 8, 4, device=cuda)
     valid = torch.ones(1, 8, dtype=torch.bool, device=cuda)

@@ -13,7 +13,11 @@ import pytest
 import torch
 
 from tf_eager_object_detection_tpu_torch.ops import roi_align as port
-from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_cuda import ROI_ALIGN_KERNEL
+from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_cuda import (
+    ROI_ALIGN_KERNEL,
+    ROI_ALIGN_SINGLE_KERNEL,
+    vectorizable,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -50,8 +54,13 @@ def _case(rng, b, n, c, bucket, hw, elongated=False, invalid=0.0):
     return planes, rois, levels, valid, hw.astype(np.float32)
 
 
-def _run(cuda, planes, rois, levels, valid, hw, crop=14):
+def _run(cuda, planes, rois, levels, valid, hw, crop=14, misalign=False):
+    """Kernel and plain version on the case; with `misalign`, every plane is a
+    contiguous view 4 bytes past a 16-byte boundary (the scalar path)."""
     t = [torch.from_numpy(p).to(cuda) for p in planes]
+    if misalign:
+        t = [torch.cat([p.new_zeros(1), p.flatten()])[1:].view(p.shape) for p in t]
+        assert not vectorizable(t, torch.empty(4, device=cuda))
     args = (t, *[torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
                  for a in (rois, levels, valid, hw[:, 0], hw[:, 1])], crop, STRIDES)
     before = ROI_ALIGN_KERNEL.launches
@@ -67,16 +76,41 @@ def _run(cuda, planes, rois, levels, valid, hw, crop=14):
     ("elongated_edges_invalid", 2, 16, 16, (640, 1024), [[600, 1000], [500, 380]], True, 0.3),
     ("served_b1", 1, 1000, 256, (640, 1024), [[600, 800]], True, 0.05),
     ("odd_channels", 1, 9, 40, (128, 128), [[100, 128]], False, 0.0),
+    ("channels_not_multiple_of_4", 2, 33, 42, (192, 256), [[180, 250], [150, 200]], True, 0.1),
+    ("three_channels", 1, 20, 3, (128, 128), [[100, 128]], False, 0.0),
+    ("train_b1", 1, 256, 256, (640, 1024), [[600, 800]], True, 0.0),
+    ("misaligned_planes", 1, 40, 64, (192, 256), [[180, 250]], True, 0.1),
 ])
 def test_kernel_matches_plain_version(cuda, name, b, n, c, bucket, hw, elongated, invalid):
     rng = np.random.RandomState(n + c)
     case = _case(rng, b, n, c, bucket, np.asarray(hw), elongated, invalid)
-    got, ref = _run(cuda, *case)
+    got, ref = _run(cuda, *case, misalign=name == "misaligned_planes")
     assert got.shape == (b, n, 14, 14, c)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
     valid = torch.from_numpy(case[3]).to(cuda)
     assert not bool(got[~valid].any())
     assert bool((got[valid].abs().amax(dim=(1, 2, 3)) > 0).all())
+
+
+@pytest.mark.parametrize("c", [256, 42])
+def test_single_level_launches_match_plain_version(cuda, c):
+    """K2: the kernel launched with one plane per level through
+    `roi_align_single_level` (the per-level training path), summed over the
+    levels, against the plain single-level version."""
+    rng = np.random.RandomState(c)
+    planes, rois, levels, valid, hw = _case(rng, 1, 256, c, (640, 1024), np.asarray([[600, 800]]),
+                                            True, 0.05)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    r, ih, iw = to(rois), to(hw[:, 0]), to(hw[:, 1])
+    got = ref = 0
+    before = ROI_ALIGN_SINGLE_KERNEL.launches
+    for k, s in enumerate(STRIDES):
+        active = to((levels == k) & valid)
+        got = got + port.roi_align_single_level(to(planes[k]), r, active, ih, iw, 14, s)
+        ref = ref + port.roi_align_single_level_reference(to(planes[k]), r, active, ih, iw, 14, s)
+    torch.cuda.synchronize()
+    assert ROI_ALIGN_SINGLE_KERNEL.launches == before + len(STRIDES)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
 
 def test_kernel_rejects_bad_inputs(cuda):

@@ -17,9 +17,10 @@ from tf_eager_object_detection_tpu_torch.ops.kernels.build import CudaKernel, de
 
 __all__ = ["CudaNms", "NMS_KERNEL"]
 
-# removed-bitset words in the scan kernel's shared memory (48 KB, the most a
-# launch gets without opting in) -> K <= 393216
-_MAX_WORDS = 48 * 1024 // 8
+# removed-bitset words in the scan kernel's dynamic shared memory: 48 KB (the
+# most a launch gets without opting in) less 1 KB for its static arrays (the
+# kept-row lists of two words) -> K <= 385024
+_MAX_WORDS = (48 * 1024 - 1024) // 8
 
 
 class CudaNms(CudaKernel):

@@ -18,7 +18,11 @@ from typing import Sequence
 
 import torch
 
-from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_cuda import CudaRoiAlign
+from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_cuda import (
+    _ARGS_HEAD,
+    _ARGS_TAIL,
+    CudaRoiAlign,
+)
 
 __all__ = ["CudaRoiAlignBackward", "ROI_ALIGN_BACKWARD_KERNEL", "ROI_ALIGN_SINGLE_BACKWARD_KERNEL"]
 
@@ -31,6 +35,7 @@ class CudaRoiAlignBackward(CudaRoiAlign):
     sources = ("roi_align_backward.cu", "roi_align_common.cuh")
     entry = "roi_align_multilevel_backward_cuda"
     error_fn = "roi_align_backward_error_string"
+    argtypes = (*_ARGS_HEAD, *_ARGS_TAIL)
 
     def __call__(
         self,

@@ -10,7 +10,9 @@ launches on PyTorch's current stream, builds its library on first use
 and counts its own launches in `.launches`. They take CUDA tensors only; the
 plain PyTorch versions live beside their callers in `ops/roi_align.py`. The
 image extents must fit the planes (a sample is clamped to the image's last
-valid cell, which must lie on the plane).
+valid cell, which must lie on the plane). The forward moves 16-byte float4
+units where `vectorizable` holds and single channels otherwise: a plane view
+that is contiguous but not 16-byte aligned is taken, on the scalar path.
 """
 
 from __future__ import annotations
@@ -22,10 +24,40 @@ import torch
 
 from tf_eager_object_detection_tpu_torch.ops.kernels.build import CudaKernel, device_and_stream
 
-__all__ = ["CudaRoiAlign", "ROI_ALIGN_KERNEL", "ROI_ALIGN_SINGLE_KERNEL"]
+__all__ = ["CudaRoiAlign", "ROI_ALIGN_KERNEL", "ROI_ALIGN_SINGLE_KERNEL", "vectorizable"]
 
 _MAX_LEVELS = 8  # kMaxLevels of the source
 _MAX_CROP = 64  # kMaxCrop: shared-memory coordinate slots per axis
+
+# the C interface shared by the forward and the backward; the forward adds
+# its `vec` flag between the two parts
+_ARGS_HEAD = (
+    ctypes.POINTER(ctypes.c_void_p),  # plane pointers (gradient planes for the backward)
+    ctypes.POINTER(ctypes.c_int),  # heights
+    ctypes.POINTER(ctypes.c_int),  # widths
+    ctypes.POINTER(ctypes.c_float),  # strides
+    ctypes.c_int,  # n_levels
+    ctypes.c_void_p,  # rois
+    ctypes.c_void_p,  # levels
+    ctypes.c_void_p,  # valid
+    ctypes.c_void_p,  # image_h
+    ctypes.c_void_p,  # image_w
+    ctypes.c_int,  # batch
+    ctypes.c_int,  # n
+    ctypes.c_int,  # c
+    ctypes.c_int,  # crop
+)
+_ARGS_TAIL = (
+    ctypes.c_void_p,  # out (grad_out for the backward)
+    ctypes.c_int,  # device
+    ctypes.c_void_p,  # stream
+)
+
+
+def vectorizable(p_list: Sequence[torch.Tensor], out: torch.Tensor) -> bool:
+    """Whether the forward moves 16-byte float4 units: C % 4 == 0 and every
+    plane and the output 16-byte aligned (else it takes its scalar path)."""
+    return out.shape[-1] % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (*p_list, out))
 
 
 class CudaRoiAlign(CudaKernel):
@@ -36,25 +68,7 @@ class CudaRoiAlign(CudaKernel):
     sources = ("roi_align.cu", "roi_align_common.cuh")
     entry = "roi_align_multilevel_cuda"
     error_fn = "roi_align_error_string"
-    argtypes = (
-        ctypes.POINTER(ctypes.c_void_p),  # plane pointers (gradient planes for the backward)
-        ctypes.POINTER(ctypes.c_int),  # heights
-        ctypes.POINTER(ctypes.c_int),  # widths
-        ctypes.POINTER(ctypes.c_float),  # strides
-        ctypes.c_int,  # n_levels
-        ctypes.c_void_p,  # rois
-        ctypes.c_void_p,  # levels
-        ctypes.c_void_p,  # valid
-        ctypes.c_void_p,  # image_h
-        ctypes.c_void_p,  # image_w
-        ctypes.c_int,  # batch
-        ctypes.c_int,  # n
-        ctypes.c_int,  # c
-        ctypes.c_int,  # crop
-        ctypes.c_void_p,  # out (grad_out for the backward)
-        ctypes.c_int,  # device
-        ctypes.c_void_p,  # stream
-    )
+    argtypes = (*_ARGS_HEAD, ctypes.c_int, *_ARGS_TAIL)  # vec: 1 for the float4 path
 
     @staticmethod
     def _check(p_list, rois, levels, valid, image_height, image_width, crop_size, strides):
@@ -86,9 +100,9 @@ class CudaRoiAlign(CudaKernel):
                              f"{tuple(image_height.shape)} and {tuple(image_width.shape)}")
         if not 2 <= crop_size <= _MAX_CROP:
             raise ValueError(f"crop_size must be in [2, {_MAX_CROP}], got {crop_size}")
-        if b < 1 or n < 1 or c < 1 or b * n >= 2**31:
-            raise ValueError(f"CUDA RoIAlign needs B, N, C >= 1 and B*N < 2**31; "
-                             f"got B={b}, N={n}, C={c}")
+        if b < 1 or n < 1 or c < 1 or b * n * crop_size >= 2**31:
+            raise ValueError(f"CUDA RoIAlign needs B, N, C >= 1 and B*N*S < 2**31 (the "
+                             f"forward's grid); got B={b}, N={n}, C={c}, S={crop_size}")
         device = rois.device
         if device.type != "cuda" or any(t.device != device for t in tensors):
             raise ValueError(f"CUDA RoIAlign takes CUDA tensors on one device, got "
@@ -97,8 +111,9 @@ class CudaRoiAlign(CudaKernel):
             raise ValueError("CUDA RoIAlign takes contiguous tensors")
 
     def _launch(self, p_list, rois, levels, valid, image_height, image_width, crop_size,
-                strides, out) -> None:
-        """Launches on checked arguments, `out` as the last data pointer."""
+                strides, out, *flags) -> None:
+        """Launches on checked arguments, `flags` after the crop size and `out`
+        as the last data pointer."""
         b, n, _ = rois.shape
         nl = len(p_list)
         self.launch(
@@ -116,6 +131,7 @@ class CudaRoiAlign(CudaKernel):
             n,
             p_list[0].shape[-1],
             int(crop_size),
+            *flags,
             out.data_ptr(),
             *device_and_stream(rois.device),
         )
@@ -140,7 +156,7 @@ class CudaRoiAlign(CudaKernel):
         out = torch.empty((b, n, crop_size, crop_size, p_list[0].shape[-1]),
                           dtype=torch.float32, device=rois.device)
         self._launch(p_list, rois, levels, valid, image_height, image_width, crop_size, strides,
-                     out)
+                     out, int(vectorizable(p_list, out)))
         return out
 
 
