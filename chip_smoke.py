@@ -8,8 +8,10 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
 
 1. Prints the card's name and power limit; requires CUDA; turns TF32 off.
 2. Builds the three CUDA libraries from `tf_eager_object_detection_tpu_torch/csrc`
-   at once (one nvcc each: NMS, RoIAlign forward, RoIAlign backward) and
-   prints their ptxas reports.
+   at once (one nvcc each: NMS, RoIAlign forward, RoIAlign backward), with
+   a fourth: the backward with a device counter of the reductions it
+   issues (`counting_source`, a diagnostic build that only reads the
+   counts), and prints their ptxas reports.
 3. K1, the NMS kernel, against its plain PyTorch version: index-exact at the
    Faster R-CNN shapes ([1, 6000] -> 300 for `predict`, [4, 6000] -> 300 for
    a served batch, [20, 300] -> 50 per class), the FPN shapes ([4, 6000] ->
@@ -35,12 +37,15 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    launch per level) and K2 (the single-level forward, one launch per level)
    against their plain versions at the stock training shape (B=1, N=256),
    at B=4, and on an overlap-heavy and an edge / invalid / aspect-30
-   fixture: each backward cell within 1e-5 of sum |g * w| over its terms
-   (float atomics add in no fixed order), K2 within atol/rtol 1e-5; errors,
-   times (K2 from graph replays; K5 / K3, each longer than its launch, from
-   CUDA events around their calls), bounds and atomic counts; `grid_sample`
-   (its autograd backward for K5 / K3) per level as a near-equivalent
-   reference only.
+   fixture, with N(0, 1) g; K5 and K3 also at B=1 with the training path's
+   pool-sparse g (the 2x2 max pool's backward): each backward cell within
+   1e-5 of sum |g * w| over its terms (float reductions add in no fixed
+   order), K2 within atol/rtol 1e-5; errors, times from graph replays,
+   bounds, the (tap, channel) terms the backward adds, and the reductions
+   it issues (vector and scalar) as the counting build counts them, which
+   must equal the count of a model of its walk (`backward_work`);
+   `grid_sample` (its autograd backward for K5 / K3) per level as a
+   near-equivalent reference only.
 6. Faster R-CNN ResNet-50 serving, then FPN ResNet-50 serving, each at full
    width with seeded random weights and the stock Pascal config: 8 synthetic
    VOC-sized requests through `preprocess_eval_image` -> `batched_im_detect`
@@ -66,12 +71,14 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import re
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -87,10 +94,12 @@ from tf_eager_object_detection_tpu_torch.models.layers import FrozenBatchNorm
 from tf_eager_object_detection_tpu_torch.models.model_factory import model_factory
 from tf_eager_object_detection_tpu_torch.ops import nms as nms_mod
 from tf_eager_object_detection_tpu_torch.ops import roi_align as roi_mod
+from tf_eager_object_detection_tpu_torch.ops.kernels import build as kb
 from tf_eager_object_detection_tpu_torch.ops.kernels.nms_cuda import NMS_KERNEL
 from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_backward_cuda import (
     ROI_ALIGN_BACKWARD_KERNEL,
     ROI_ALIGN_SINGLE_BACKWARD_KERNEL,
+    CudaRoiAlignBackward,
 )
 from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_cuda import (
     ROI_ALIGN_KERNEL,
@@ -139,7 +148,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 NMS_OPS_PER_IOU = 15  # float ops of one IoU test in csrc/nms.cu::overlaps
 ROI_OPS_PER_SAMPLE = 9  # 6 multiplies and 3 adds per sample and channel
-BWD_OPS_PER_TAP = 2  # a multiply and an (atomic) add per nonzero tap and channel
+BWD_OPS_PER_TAP = 2  # a multiply and an add per nonzero tap and channel
 TRAIN_ROIS = 256  # roi_total_sample_number of the stock config
 # the kernels of the port: launch counter and the TPU kernel it replaces
 KERNELS = {
@@ -223,20 +232,99 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def build_kernels() -> None:
-    """The three libraries built at once (nvcc runs outside the GIL); the
-    single-level wrappers then load the libraries of their fused twins."""
+# the backward's reductions: the lines its diagnostic builds edit
+REDUCE_LINES = (
+    "__device__ __forceinline__ void reduce_add(float* dst, float v) { atomicAdd(dst, v); }",
+    "__device__ __forceinline__ void reduce_add(float4* dst, float4 v) { atomicAdd(dst, v); }",
+)
+
+
+def counting_source(src: str) -> str:
+    """csrc/roi_align_backward.cu with a device counter of the reductions it
+    issues (scalar, vector), read and zeroed by `roi_align_backward_reductions`;
+    the kernel's sums and addresses are unchanged."""
+    for k, line in enumerate(REDUCE_LINES):
+        if src.count(line) != 1:
+            raise ValueError(f"roi_align_backward.cu has no single line {line!r}")
+        count = f"atomicAdd(&g_reductions[{k}], 1ull); atomicAdd(dst, v);"
+        src = src.replace(line, line.replace("atomicAdd(dst, v);", count))
+    src = src.replace("namespace {\n",
+                      "namespace {\n__device__ unsigned long long g_reductions[2];\n", 1)
+    return src + """
+extern "C" int roi_align_backward_reductions(unsigned long long* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, g_reductions, sizeof(g_reductions));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[2] = {0, 0};
+  return static_cast<int>(cudaMemcpyToSymbol(g_reductions, zero, sizeof(zero)));
+}
+"""
+
+
+def build_variant(tag: str, files: dict[str, str], out: Path) -> tuple[ctypes.CDLL, str]:
+    """Sources {name: text} written to `out`/`tag` and built with the flags of
+    `ops/kernels/build.py` -> (library, compiler output)."""
+    d = out / tag
+    d.mkdir(parents=True, exist_ok=True)
+    for name, text in files.items():
+        (d / name).write_text(text)
+    lib = d / "lib.so"
+    cmd = [kb._nvcc(), *kb.NVCC_FLAGS, "-o", str(lib),
+           *(str(d / n) for n in files if n.endswith(".cu"))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {tag}:\n{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(str(lib.resolve())), proc.stdout + proc.stderr
+
+
+def attach(kernel, lib):
+    """The wrapper `kernel` launching from `lib` instead of its own build."""
+    fn = getattr(lib, kernel.entry)
+    fn.argtypes, fn.restype = list(kernel.argtypes), ctypes.c_int
+    err = getattr(lib, kernel.error_fn)
+    err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+    kernel._lib, kernel.build_info = lib, {}
+    return kernel
+
+
+def build_kernels() -> CudaRoiAlignBackward:
+    """The three libraries and the counting backward built at once (nvcc
+    runs outside the GIL); the single-level wrappers then load the libraries
+    of their fused twins. Returns the counting backward's wrapper, which is
+    none of the path's: its launches count nowhere."""
     kernels = (NMS_KERNEL, ROI_ALIGN_KERNEL, ROI_ALIGN_BACKWARD_KERNEL)
-    with ThreadPoolExecutor(len(kernels)) as pool:
+    counting = {name: (kb.CSRC_DIR / name).read_text()
+                for name in CudaRoiAlignBackward.sources}
+    counting["roi_align_backward.cu"] = counting_source(counting["roi_align_backward.cu"])
+    with ThreadPoolExecutor(len(kernels) + 1) as pool:
+        counted = pool.submit(build_variant, "backward_counting", counting,
+                              kb.BUILD_DIR / "variants")
         infos = list(pool.map(lambda k: k.load(), kernels))
+        lib, log = counted.result()
     for kernel, info in zip(kernels, infos):
         print(f"{kernel.name} kernel: {'built' if info['built'] else 'loaded'} {info['path']} "
               f"in {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
             if "registers" in line or "smem" in line or "Compiling" in line:
                 print("  ptxas:", line.strip())
+    print("backward with a reduction counter: built; ptxas:",
+          "; ".join(ln.strip() for ln in log.splitlines() if "registers" in ln))
     ROI_ALIGN_SINGLE_KERNEL.load()
     ROI_ALIGN_SINGLE_BACKWARD_KERNEL.load()
+    lib.roi_align_backward_reductions.argtypes = [ctypes.c_void_p]
+    lib.roi_align_backward_reductions.restype = ctypes.c_int
+    return attach(CudaRoiAlignBackward(), lib)
+
+
+def counted_reductions(counting, g, args_list) -> dict:
+    """The reductions the backward issues on these inputs, one launch per
+    element of `args_list`, as its counting build counts them."""
+    buf = (ctypes.c_ulonglong * 2)()
+    require(counting._lib.roi_align_backward_reductions(buf) == 0, "zeroing the counter failed")
+    for args in args_list:
+        counting(g, [tuple(p.shape) for p in args[0]], *args[1:])
+    torch.cuda.synchronize()
+    require(counting._lib.roi_align_backward_reductions(buf) == 0, "reading the counter failed")
+    return {"vector": int(buf[1]), "scalar": int(buf[0])}
 
 
 # ------------------------------------------------------------------------- K1
@@ -507,30 +595,95 @@ def plain_backward(g, args):
     return [torch.cat(ds) for ds in zip(*per_image)]
 
 
-def tap_count(args):
-    """Nonzero taps of the in-range samples of the valid rois on their own levels."""
+def axis_taps(lo, hi, dim, stride, crop, size):
+    """Tap cells and weights [B, N, S, 2] of one axis, with the arithmetic of
+    `taps` in csrc/roi_align_common.cuh, and the in-range samples [B, N, S]."""
+    v, ok = roi_mod.level_sample_coords(lo, hi, dim, stride, crop)
+    c0 = v.floor()
+    w = torch.stack([(1.0 - (v - c0).abs()).clamp_min(0.0),
+                     (1.0 - (v - (c0 + 1.0)).abs()).clamp_min(0.0)], -1)
+    cells = torch.stack([c0, c0 + 1.0], -1).long().clamp_max(size - 1)
+    return cells, w * ok[..., None], ok
+
+
+def backward_work(g, args):
+    """What one backward call adds on these inputs: (terms, one per nonzero
+    tap and channel; terms whose g is nonzero; vector reductions on the
+    float4 path, else 0; scalar reductions on the scalar path, else 0). The
+    reductions are a model of the kernel's walk, held against its counting
+    build: along each sample row, the sum of w_x * g of each column the
+    row's samples reach, unless every g unit in it is zero, goes to each of
+    the row's taps of nonzero weight with one reduction."""
     planes, rois, levels, valid, ih, iw, crop, strides = args
-    taps = 0
-    for k, s in enumerate(strides):
-        ys, y_ok = roi_mod.level_sample_coords(rois[..., 1], rois[..., 3], ih, s, crop)
-        xs, x_ok = roi_mod.level_sample_coords(rois[..., 0], rois[..., 2], iw, s, crop)
-        ok = ((levels == k) & valid)[..., None, None] & y_ok[..., :, None] & x_ok[..., None, :]
-        ny = 1 + (ys != ys.floor()).long()  # a tap of weight 0 adds nothing
-        nx = 1 + (xs != xs.floor()).long()
-        taps += int(((ny[..., :, None] * nx[..., None, :]) * ok).sum())
-    return taps
+    c = g.shape[-1]
+    vec = vectorizable([], g)  # the wrapper's fresh gradient planes are aligned
+    live_unit = g != 0  # [B, N, S, S, C]
+    if vec:
+        live_unit = live_unit.reshape(*g.shape[:-1], c // 4, 4).any(-1)
+    channels = (g != 0).sum(-1)
+    terms = live = reductions = 0
+    for k, (plane, s) in enumerate(zip(planes, strides)):
+        on = (levels == k) & valid
+        ix, wx, x_ok = axis_taps(rois[..., 0], rois[..., 2], iw, s, crop, plane.shape[2])
+        _, wy, y_ok = axis_taps(rois[..., 1], rois[..., 3], ih, s, crop, plane.shape[1])
+        taps = ((wy[..., :, None, :, None] * wx[..., None, :, None, :]) != 0).sum((-1, -2))
+        taps = taps * on[..., None, None]  # [B, N, S, S] nonzero taps of each sample
+        terms += int(taps.sum()) * c
+        live += int((taps * channels).sum())
+        row_taps = ((wy != 0).sum(-1) * on[..., None]).unsqueeze(-1)  # [B, N, S, 1]
+        # the walk, for all rois, rows and units at once
+        a = torch.full(on.shape, -2, dtype=torch.long, device=g.device)
+        live_a = torch.zeros_like(live_unit[..., 0, :])  # [B, N, S rows, units]
+        live_b = torch.zeros_like(live_a)
+        for j in range(crop):
+            inside = x_ok[..., j] & on
+            move = inside & (ix[..., j, 0] != a)
+            step = (move & (ix[..., j, 0] == a + 1))[..., None, None]
+            move = move[..., None, None]
+            reductions += int(((live_a & move).sum(-1, keepdim=True) * row_taps).sum())
+            reductions += int(((live_b & move & ~step).sum(-1, keepdim=True) * row_taps).sum())
+            live_a = torch.where(step, live_b, live_a & ~move)
+            live_b = live_b & ~move
+            a = torch.where(move[..., 0, 0], ix[..., j, 0], a)
+            reach = live_unit[..., :, j, :] & inside[..., None, None]
+            live_a = live_a | reach
+            # a second tap clamped onto the plane's last column adds to column a
+            second = (wx[..., j, 1] != 0) & (ix[..., j, 1] != ix[..., j, 0])
+            live_b = live_b | (reach & second[..., None, None])
+        reductions += int(((live_a.sum(-1, keepdim=True) + live_b.sum(-1, keepdim=True))
+                           * row_taps).sum())
+    return terms, live, reductions if vec else 0, 0 if vec else reductions
 
 
 def backward_bound(g, args):
     """Bound of one backward call: g of the valid rois read once, every
     gradient plane written once (zeros plus the scatter), the small inputs;
-    a multiply and an add per nonzero tap and channel. Also the atomic count."""
+    a multiply and an add per nonzero tap and nonzero channel of g. Also the
+    work of `backward_work`."""
     planes, rois, levels, valid, ih, iw, crop, strides = args
     c = planes[0].shape[-1]
-    taps = tap_count(args)
+    work = backward_work(g, args)
     nbytes = int(valid.sum()) * crop * crop * c * 4 + sum(p.numel() * 4 for p in planes)
     nbytes += sum(t.numel() * t.element_size() for t in (rois, levels, valid, ih, iw))
-    return (*bound(nbytes, taps * c * BWD_OPS_PER_TAP), taps * c)
+    return (*bound(nbytes, work[1] * BWD_OPS_PER_TAP), *work)
+
+
+def dense_grad(args):
+    """An N(0, 1) output gradient for the fixture."""
+    b, n = args[1].shape[:2]
+    return torch.randn(b, n, CROP, CROP, args[0][0].shape[-1],
+                       generator=torch.Generator().manual_seed(b * n)).cuda()
+
+
+def pooled_grad(args):
+    """The training path's output gradient: the 2x2 max pool's backward of an
+    N(0, 1) gradient of the pooled crops (K4's output on the fixture), so
+    three of every four samples of a channel are exactly zero."""
+    crops = ROI_ALIGN_KERNEL(*args).requires_grad_()
+    pooled = roi_mod.max_pool_2x2_same(crops)
+    cot = torch.randn(pooled.shape, generator=torch.Generator().manual_seed(7)).cuda()
+    (g,) = torch.autograd.grad(pooled, crops, cot)
+    return g.contiguous()
 
 
 def grid_sample_backward(g, args):
@@ -548,10 +701,11 @@ def grid_sample_backward(g, args):
     return lambda: torch.autograd.grad(outs, ins, gs, retain_graph=True)
 
 
-def check_backward(name, kernel, g, args_list, iters=20):
+def check_backward(name, kernel, counting, g, args_list):
     """A backward kernel (one launch per element of `args_list`) against the
     plain backward: each cell within 1e-5 of sum |g * w| over its terms (the
-    plain backward of |g|). Returns the record."""
+    plain backward of |g|); the reductions its counting build issues against
+    the model's. Returns the record."""
     err = rel = 0.0
     for args in args_list:
         got = kernel(g, [tuple(p.shape) for p in args[0]], *args[1:])
@@ -565,15 +719,15 @@ def check_backward(name, kernel, g, args_list, iters=20):
             err = max(err, float(diff.max()))
             rel = max(rel, float((diff / m.clamp_min(1e-30)).max()))
         del got, ref, scale
-    ms = cuda_ms(lambda: [kernel(g, [tuple(p.shape) for p in a[0]], *a[1:]) for a in args_list],
-                 iters=iters)
+    ms = graph_ms(lambda: [kernel(g, [tuple(p.shape) for p in a[0]], *a[1:]) for a in args_list])
     plain_ms = cuda_ms(lambda: [plain_backward(g, a) for a in args_list], iters=2, warmup=1)
     bounds = [backward_bound(g, a) for a in args_list]
-    bound_ms = sum(b[0] for b in bounds)
-    bound_by = bounds[0][1]
-    atomics = sum(b[2] for b in bounds)
-    return dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, atomics=atomics)
+    model = {"vector": sum(b[4] for b in bounds), "scalar": sum(b[5] for b in bounds)}
+    issued = counted_reductions(counting, g, args_list)
+    require(issued == model, f"{name} issued {issued} reductions, its model {model}")
+    return dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
+                bound_ms=sum(b[0] for b in bounds), bound_by=bounds[0][1],
+                terms=sum(b[2] for b in bounds), reductions=issued)
 
 
 def check_forward(name, kernel, args_list):
@@ -594,39 +748,45 @@ def check_forward(name, kernel, args_list):
                 bound_by=bounds[0][1])
 
 
-def check_training_kernels(card):
+def check_training_kernels(card, counting):
     """K5 (fused backward), K3 (single-level backward, four launches: one per
     level) and K2 (single-level forward, four launches) against their plain
-    versions at the stock training shape (B=1, N=256), at B=4 and on an
-    overlap-heavy and an edge / invalid / aspect-30 fixture. Returns
-    {kernel: {case: record}}."""
+    versions at the stock training shape (B=1, N=256) with dense and with
+    pool-sparse g, at B=4 and on an overlap-heavy and an edge / invalid /
+    aspect-30 fixture. Returns {kernel: {case: record}}."""
     rng = np.random.RandomState(2)
+    train = roi_fixture(rng, 1, TRAIN_ROIS, [[600, 800]], invalid=0.0)
     cases = [
-        ("train_b1", roi_fixture(rng, 1, TRAIN_ROIS, [[600, 800]], invalid=0.0)),
+        ("train_b1", train, dense_grad),
         ("train_b4", roi_fixture(rng, BATCH, TRAIN_ROIS,
-                                 [[600, 800], [600, 1000], [576, 768], [640, 853]], invalid=0.0)),
-        ("overlap", roi_fixture(rng, 1, TRAIN_ROIS, [[600, 800]], invalid=0.0, overlap=True)),
+                                 [[600, 800], [600, 1000], [576, 768], [640, 853]], invalid=0.0),
+         dense_grad),
+        ("overlap", roi_fixture(rng, 1, TRAIN_ROIS, [[600, 800]], invalid=0.0, overlap=True),
+         dense_grad),
         ("edges_invalid_elongated", roi_fixture(rng, 2, 64, [[600, 1000], [500, 380]],
-                                                invalid=0.3, special=True)),
+                                                invalid=0.3, special=True), dense_grad),
+        ("train_b1_pool_sparse_g", train, pooled_grad),
     ]
     record = {"roi_align_multilevel_backward": {}, "roi_align_single_level_backward": {},
               "roi_align_single_level": {}}
-    for case, args in cases:
+    for case, args, make_grad in cases:
         b, n = args[1].shape[:2]
-        g = torch.randn(b, n, CROP, CROP, args[0][0].shape[-1],
-                        generator=torch.Generator().manual_seed(b * n)).cuda()
-        k5 = check_backward("K5", ROI_ALIGN_BACKWARD_KERNEL, g, [args])
+        g = make_grad(args)
+        k5 = check_backward("K5", ROI_ALIGN_BACKWARD_KERNEL, counting, g, [args])
         k5["near_reference_ms"] = cuda_ms(grid_sample_backward(g, args), iters=5)
-        k3 = check_backward("K3", ROI_ALIGN_SINGLE_BACKWARD_KERNEL, g, per_level(args))
+        k3 = check_backward("K3", ROI_ALIGN_SINGLE_BACKWARD_KERNEL, counting, g,
+                            per_level(args))
         k3["near_reference_ms"] = k5["near_reference_ms"]
-        k2 = check_forward("K2", ROI_ALIGN_SINGLE_KERNEL, per_level(args))
-        k2["near_reference_ms"] = cuda_ms(grid_sample_levels(args), iters=10)
-        for kname, rec in (("roi_align_multilevel_backward", k5),
-                           ("roi_align_single_level_backward", k3),
-                           ("roi_align_single_level", k2)):
+        pairs = [("roi_align_multilevel_backward", k5), ("roi_align_single_level_backward", k3)]
+        if make_grad is dense_grad:  # K2 does not read g
+            k2 = check_forward("K2", ROI_ALIGN_SINGLE_KERNEL, per_level(args))
+            k2["near_reference_ms"] = cuda_ms(grid_sample_levels(args), iters=10)
+            pairs.append(("roi_align_single_level", k2))
+        for kname, rec in pairs:
             record[kname][case] = rec
             extra = (f", max rel err {rec['max_rel_err']:.3g} of sum|g*w| (tolerance 1e-5), "
-                     f"{rec['atomics']} float atomics") if "atomics" in rec else " (atol/rtol 1e-5)"
+                     f"{rec['terms']} (tap, channel) terms, reductions issued (counted) "
+                     f"{rec['reductions']}") if "terms" in rec else " (atol/rtol 1e-5)"
             print(f"{kname} {case} [B={b}, N={n}]: max_abs_err {rec['max_abs_err']:.3g}{extra}, "
                   f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
                   f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), grid_sample per level "
@@ -1107,10 +1267,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    build_kernels()
+    counting = build_kernels()
     nms = check_nms_kernel(card)
     roi = check_roi_kernel(card)
-    train_kernels = check_training_kernels(card)
+    train_kernels = check_training_kernels(card, counting)
     print(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
     requests = make_requests()
@@ -1152,8 +1312,9 @@ def main() -> int:
             row["near_reference"] = ("autograd backward of torch.nn.functional.grid_sample, one "
                                      "call per level" if name.endswith("backward") else
                                      "torch.nn.functional.grid_sample, one call per level")
-        if "atomics" in rec:
-            row["atomics"] = rec["atomics"]
+        if "terms" in rec:
+            row["terms"] = rec["terms"]
+            row["reductions"] = rec["reductions"]
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""A/B of the port's NMS (K1) and RoIAlign forward (K4 / K2) CUDA kernels
-against another checkout's, on one NVIDIA GPU.
+"""A/B of the port's NMS (K1), RoIAlign forward (K4 / K2) and RoIAlign
+backward (K5 / K3) CUDA kernels against another checkout's, on one NVIDIA GPU.
 
-    python3 kernel_ab.py --other PATH [--rounds 2]
+    python3 kernel_ab.py --other PATH [--rounds 2] [--parts nms,forward,backward]
 
 PATH is the root of another checkout of this repository, for example the
 parent commit unpacked with `git archive`. Run from the root of this
 checkout on a machine with a CUDA GPU and nvcc. It imports nothing of JAX.
 
-1. Builds `csrc/nms.cu` and `csrc/roi_align.cu` of both checkouts with the
-   flags of `ops/kernels/build.py` (all at once), and this checkout's NMS
-   scan once more with clock64 counters (`scan_clocks`).
+1. Builds `csrc/nms.cu`, `csrc/roi_align.cu` and `csrc/roi_align_backward.cu`
+   of both checkouts with the flags of `ops/kernels/build.py` (all at
+   once), this checkout's NMS scan once more with clock64 counters
+   (`scan_clocks`), and this checkout's backward once more with its
+   reductions replaced by plain stores (`stores_only`: a diagnostic of
+   what the reductions cost, whose output is not the gradient).
 2. K1 at `chip_smoke.py`'s NMS shapes: both index-exact against the plain
    version; times from CUDA-graph replays in the order other, this, this,
    other (`--rounds` such pairs); each stage's device time from
@@ -20,6 +23,13 @@ checkout on a machine with a CUDA GPU and nvcc. It imports nothing of JAX.
 3. K4 at the served (B=4, N=1000) and training (B=1, N=256) fixtures and K2
    (one launch per level at B=1, N=256): this checkout's output equal bit
    for bit to the other's; times as for K1.
+4. K5 at the training fixtures (B=1, N=256 with dense g and with the 2x2
+   max pool's sparse g; B=4) and K3 (one launch per level at B=1): the two
+   checkouts' gradients within 1e-5 of sum |g * w| of each other (float
+   atomics add in no fixed order); times as for K1, and the stores-only
+   build's beside this checkout's.
+
+`--parts` picks which of 2-4 run (all by default).
 
 Prints one line per case with the card's name and power limit.
 """
@@ -29,7 +39,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import re
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -39,8 +48,10 @@ import torch
 
 import chip_smoke as cs
 from tf_eager_object_detection_tpu_torch.ops import nms as nms_mod
-from tf_eager_object_detection_tpu_torch.ops.kernels import build as kb
 from tf_eager_object_detection_tpu_torch.ops.kernels.nms_cuda import CudaNms
+from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_backward_cuda import (
+    CudaRoiAlignBackward,
+)
 from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_cuda import (
     _ARGS_HEAD,
     _ARGS_TAIL,
@@ -91,28 +102,25 @@ extern "C" int nms_scan_clocks(long long* host) {
 """
 
 
+def stores_only(src: str) -> str:
+    """csrc/roi_align_backward.cu with plain stores in place of its reductions:
+    the same loads, taps and addresses, no read-modify-write at the L2."""
+    for line in cs.REDUCE_LINES:
+        if src.count(line) != 1:
+            raise ValueError(f"roi_align_backward.cu has no single line {line!r}")
+        src = src.replace(line, line.replace("atomicAdd(dst, v);", "*dst = v;"))
+    return src
+
+
 def build(tag: str, files: dict[str, str]) -> ctypes.CDLL:
-    d = OUT / tag
-    d.mkdir(parents=True, exist_ok=True)
-    for name, text in files.items():
-        (d / name).write_text(text)
-    lib = d / "lib.so"
-    cmd = [kb._nvcc(), *kb.NVCC_FLAGS, "-o", str(lib),
-           *(str(d / n) for n in files if n.endswith(".cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {tag}:\n{proc.stdout}{proc.stderr}")
-    return ctypes.CDLL(str(lib.resolve()))
+    lib, log = cs.build_variant(tag, files, OUT)
+    for line in log.splitlines():
+        if tag.startswith("bwd") and ("registers" in line or "spill" in line):
+            print(f"{tag} ptxas: {line.strip()}")
+    return lib
 
 
-def attach(kernel, lib):
-    """The wrapper `kernel` launching from `lib` instead of its own build."""
-    fn = getattr(lib, kernel.entry)
-    fn.argtypes, fn.restype = list(kernel.argtypes), ctypes.c_int
-    err = getattr(lib, kernel.error_fn)
-    err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-    kernel._lib, kernel.build_info = lib, {}
-    return kernel
+attach = cs.attach
 
 
 class RoiAlignNoVec(CudaRoiAlign):
@@ -132,6 +140,23 @@ class RoiAlignNoVec(CudaRoiAlign):
 def roi_kernel(lib, src: str):
     takes_vec = re.search(r"int crop, int vec,", src) is not None
     return attach(CudaRoiAlign() if takes_vec else RoiAlignNoVec(), lib)
+
+
+class BackwardNoVec(CudaRoiAlignBackward):
+    """The backward's C interface before it took the `vec` flag."""
+
+    argtypes = (*_ARGS_HEAD, *_ARGS_TAIL)
+
+    def __call__(self, grad, plane_shapes, rois, levels, valid, ih, iw, crop, strides):
+        dfs = [torch.zeros(tuple(s), device=rois.device) for s in plane_shapes]
+        self._check(dfs, rois, levels, valid, ih, iw, crop, strides)
+        self._launch(dfs, rois, levels, valid, ih, iw, crop, strides, grad)
+        return dfs
+
+
+def backward_kernel(lib, src: str):
+    takes_vec = re.search(r"int crop, int vec,", src) is not None
+    return attach(CudaRoiAlignBackward() if takes_vec else BackwardNoVec(), lib)
 
 
 def stage_ms(fn, calls: int = 10) -> dict:
@@ -167,28 +192,7 @@ def fmt(times: dict) -> str:
                      for side, ts in times.items())
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", required=True, type=Path, help="root of the other checkout")
-    ap.add_argument("--rounds", type=int, default=2, help="pairs of (other, this) timings")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("kernel_ab: torch.cuda.is_available() is False; this needs a CUDA GPU",
-              file=sys.stderr)
-        return 1
-    card = cs.card_line()
-    print(card)
-    src = {side: {name: (root / CSRC / name).read_text()
-                  for name in ("nms.cu", "roi_align.cu", "roi_align_common.cuh")}
-           for side, root in (("other", args.other), ("this", Path(".")))}
-    jobs = {f"nms_{side}": {"nms.cu": s["nms.cu"]} for side, s in src.items()}
-    jobs.update({f"roi_{side}": {"roi_align.cu": s["roi_align.cu"],
-                                 "roi_align_common.cuh": s["roi_align_common.cuh"]}
-                 for side, s in src.items()})
-    jobs["nms_clocks"] = {"nms.cu": scan_clocks(src["this"]["nms.cu"])}
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        libs = dict(zip(jobs, pool.map(lambda kv: build(*kv), jobs.items())))
-
+def ab_nms(libs, rounds: int, card: str) -> None:
     nms = {side: attach(CudaNms(), libs[f"nms_{side}"]) for side in ("other", "this")}
     clocks_lib = libs["nms_clocks"]
     clocks_lib.nms_scan_clocks.argtypes = [ctypes.c_void_p]
@@ -210,13 +214,15 @@ def main() -> int:
         per = max(words, 1)
         call = lambda kern: kern(tb, tv, thr, max_out)  # noqa: E731
         print(f"K1 {name} [{b},{k}]->{max_out}: both index-exact; graph-replay "
-              f"{fmt(ab_times(nms, call, args.rounds))}; stages other "
+              f"{fmt(ab_times(nms, call, rounds))}; stages other "
               f"{stage_ms(lambda: call(nms['other']))}, this "
               f"{stage_ms(lambda: call(nms['this']))}; scan of row 0: {words} "
               f"words, {total / per:.0f} cycles a word (warp 0 gather {gather / per:.0f}, "
               f"resolve {resolve / per:.0f}; other warps' OR {or_step / per:.0f}; thread 0 "
               f"barrier wait {wait / per:.0f})  ({card})")
 
+
+def ab_forward(libs, src, rounds: int, card: str) -> None:
     roi = {side: roi_kernel(libs[f"roi_{side}"], src[side]["roi_align.cu"])
            for side in ("other", "this")}
     rng = np.random.RandomState(1)
@@ -233,9 +239,91 @@ def main() -> int:
                    f"{name}: the two kernels' outputs differ")
         del other, this
         print(f"{name}: outputs equal bit for bit; graph-replay "
-              f"{fmt(ab_times(roi, call, args.rounds))}; stages other "
+              f"{fmt(ab_times(roi, call, rounds))}; stages other "
               f"{stage_ms(lambda: call(roi['other']))}, this "
               f"{stage_ms(lambda: call(roi['this']))}  ({card})")
+
+
+def ab_backward(libs, src, rounds: int, card: str) -> None:
+    bwd = {side: backward_kernel(libs[f"bwd_{side}"], src[side]["roi_align_backward.cu"])
+           for side in ("other", "this")}
+    stores = attach(CudaRoiAlignBackward(), libs["bwd_stores"])
+    rng = np.random.RandomState(2)
+    train = cs.roi_fixture(rng, 1, cs.TRAIN_ROIS, [[600, 800]], invalid=0.0)
+    b4 = cs.roi_fixture(rng, cs.BATCH, cs.TRAIN_ROIS,
+                        [[600, 800], [600, 1000], [576, 768], [640, 853]], invalid=0.0)
+    cases = [("K5 train B=1 N=256, dense g", cs.dense_grad(train), [train]),
+             ("K5 train B=1 N=256, pool-sparse g", cs.pooled_grad(train), [train]),
+             ("K5 train B=4 N=256, dense g", cs.dense_grad(b4), [b4]),
+             ("K3 train B=1 N=256, dense g, 4 launches", cs.dense_grad(train),
+              cs.per_level(train))]
+    for name, g, args_list in cases:
+        def call(kern):
+            return [d for a in args_list
+                    for d in kern(g, [tuple(p.shape) for p in a[0]], *a[1:])]
+        other, this = call(bwd["other"]), call(bwd["this"])
+        torch.cuda.synchronize()
+        scale = [m for a in args_list for m in cs.plain_backward(g.abs(), a)]
+        worst = max(float(((t - o).abs() / m.clamp_min(1e-30)).max())
+                    for o, t, m in zip(other, this, scale))
+        cs.require(all(bool(((t - o).abs() <= 1e-5 * m).all())
+                       for o, t, m in zip(other, this, scale)),
+                   f"{name}: the kernels' gradients differ by more than 1e-5 of sum "
+                   f"|g * w| (worst {worst:.3g})")
+        del other, this, scale
+        every = dict(bwd, stores=stores)
+        print(f"{name}: gradients of this within {worst:.3g} of sum |g * w| of the other's "
+              f"(tolerance 1e-5); graph-replay {fmt(ab_times(bwd, call, rounds))}; stores-only "
+              f"diagnostic {cs.graph_ms(lambda: call(stores)):.4f} ms; stages "
+              + ", ".join(f"{side} {stage_ms(lambda k=k: call(k))}" for side, k in every.items())
+              + f"  ({card})")
+
+
+PARTS = ("nms", "forward", "backward")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", required=True, type=Path, help="root of the other checkout")
+    ap.add_argument("--rounds", type=int, default=2, help="pairs of (other, this) timings")
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help=f"comma-separated subset of {PARTS}")
+    args = ap.parse_args()
+    parts = args.parts.split(",")
+    if not set(parts) <= set(PARTS):
+        ap.error(f"--parts takes a subset of {PARTS}, got {args.parts}")
+    if not torch.cuda.is_available():
+        print("kernel_ab: torch.cuda.is_available() is False; this needs a CUDA GPU",
+              file=sys.stderr)
+        return 1
+    card = cs.card_line()
+    print(card)
+    names = ("nms.cu", "roi_align.cu", "roi_align_backward.cu", "roi_align_common.cuh")
+    src = {side: {name: (root / CSRC / name).read_text() for name in names}
+           for side, root in (("other", args.other), ("this", Path(".")))}
+    jobs = {}
+    for side, s in src.items():
+        common = {"roi_align_common.cuh": s["roi_align_common.cuh"]}
+        if "nms" in parts:
+            jobs[f"nms_{side}"] = {"nms.cu": s["nms.cu"]}
+        if "forward" in parts:
+            jobs[f"roi_{side}"] = {"roi_align.cu": s["roi_align.cu"], **common}
+        if "backward" in parts:
+            jobs[f"bwd_{side}"] = {"roi_align_backward.cu": s["roi_align_backward.cu"], **common}
+    if "nms" in parts:
+        jobs["nms_clocks"] = {"nms.cu": scan_clocks(src["this"]["nms.cu"])}
+    if "backward" in parts:
+        jobs["bwd_stores"] = {
+            "roi_align_backward.cu": stores_only(src["this"]["roi_align_backward.cu"]),
+            "roi_align_common.cuh": src["this"]["roi_align_common.cuh"]}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = dict(zip(jobs, pool.map(lambda kv: build(*kv), jobs.items())))
+    if "nms" in parts:
+        ab_nms(libs, args.rounds, card)
+    if "forward" in parts:
+        ab_forward(libs, src, args.rounds, card)
+    if "backward" in parts:
+        ab_backward(libs, src, args.rounds, card)
     return 0
 
 

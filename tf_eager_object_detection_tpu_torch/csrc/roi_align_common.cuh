@@ -22,7 +22,6 @@ namespace roi_align {
 
 constexpr int kMaxLevels = 8;
 constexpr int kMaxCrop = 64;
-constexpr int kMaxThreads = 256;
 constexpr float kEdgeEps = 1e-3f;
 
 template <typename T>
@@ -53,24 +52,6 @@ __device__ __forceinline__ void sample_coord(float lo, float hi, float dim, floa
   *coord = fminf(fmaxf(v, 0.0f), last);
 }
 
-// The block's 2 * crop sample coordinates of roi `roi` (image b) on `level`,
-// into shared memory; the caller synchronises.
-template <typename T>
-__device__ __forceinline__ void roi_sample_coords(const Level<T>& level, const float* rois,
-                                                  const float* image_h, const float* image_w,
-                                                  int roi, int b, int crop, float* ys, float* xs,
-                                                  int* y_in, int* x_in) {
-  const float* r = rois + static_cast<size_t>(roi) * 4;  // x1, y1, x2, y2
-  for (int t = threadIdx.x; t < 2 * crop; t += blockDim.x) {
-    if (t < crop) {
-      sample_coord(r[1], r[3], image_h[b], level.stride, t, crop, &ys[t], &y_in[t]);
-    } else {
-      const int j = t - crop;
-      sample_coord(r[0], r[2], image_w[b], level.stride, j, crop, &xs[j], &x_in[j]);
-    }
-  }
-}
-
 // The two taps of a clamped sample coordinate along an axis of `size` cells:
 // cell indices (clamped to the plane) and tent weights.
 struct Taps {
@@ -88,6 +69,29 @@ __device__ __forceinline__ Taps taps(float v, int size) {
   t.i0 = min(c0, size - 1);
   t.i1 = min(c0 + 1, size - 1);
   return t;
+}
+
+// The taps of a block's sample columns (all `crop` of them) and of its
+// `rows` sample rows from row `row_lo`, for roi `r` (x1, y1, x2, y2 pixels)
+// of an image of valid extent (image_h, image_w) on `level`, into shared
+// memory: thread t < crop takes column t, the next `rows` threads the rows
+// (the block needs crop + rows threads); the caller synchronises. The same
+// arithmetic as the forward's (roi_align.cu) prologue.
+template <typename T>
+__device__ __forceinline__ void block_taps(const Level<T>& level, const float* r, float image_h,
+                                           float image_w, int crop, int row_lo, int rows,
+                                           Taps* ty, int* y_in, Taps* tx, int* x_in) {
+  const int t = threadIdx.x;
+  if (t < crop) {
+    float x;
+    sample_coord(r[0], r[2], image_w, level.stride, t, crop, &x, &x_in[t]);
+    tx[t] = taps(x, level.w);
+  } else if (t < crop + rows) {
+    float y;
+    sample_coord(r[1], r[3], image_h, level.stride, row_lo + t - crop, crop, &y,
+                 &y_in[t - crop]);
+    ty[t - crop] = taps(y, level.h);
+  }
 }
 
 // Pyramid of `n_levels` planes from the C interface's arrays.
@@ -108,12 +112,6 @@ inline Pyramid<T> make_pyramid(const void* const* planes, const int* heights, co
 inline bool launch_args_ok(int n_levels, int crop, int batch, int n, int c) {
   return n_levels >= 1 && n_levels <= kMaxLevels && crop >= 2 && crop <= kMaxCrop &&
          batch >= 1 && n >= 1 && c >= 1;
-}
-
-// One thread per channel, a warp multiple, at most kMaxThreads.
-inline int threads_for(int c) {
-  const int threads = ((c + 31) / 32) * 32;
-  return threads > kMaxThreads ? kMaxThreads : threads;
 }
 
 }  // namespace roi_align

@@ -7,9 +7,14 @@
   `ops/roi_align.py::RoIAlignSingleLevel` with one plane (K3).
 
 Arguments are checked and passed as for the forward (`roi_align_cuda.py`),
-with the output gradient in place of the output. Each wrapper launches on
-PyTorch's current stream, builds its library on first use and counts its
-own launches in `.launches`; CUDA tensors only.
+with the output gradient in place of the output: the kernel adds 16-byte
+float4 units where `vectorizable(gradient planes, grad)` holds (C % 4 == 0,
+every pointer 16-byte aligned) and single channels otherwise. The gradient
+is that of the CUDA forward: where an image's last valid cell lies past a
+plane, a tap clamped onto the plane's last cell adds there, as the forward
+reads it. Each wrapper launches on PyTorch's current stream, builds its
+library on first use and counts its own launches in `.launches`; CUDA
+tensors only.
 """
 
 from __future__ import annotations
@@ -19,9 +24,8 @@ from typing import Sequence
 import torch
 
 from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_cuda import (
-    _ARGS_HEAD,
-    _ARGS_TAIL,
     CudaRoiAlign,
+    vectorizable,
 )
 
 __all__ = ["CudaRoiAlignBackward", "ROI_ALIGN_BACKWARD_KERNEL", "ROI_ALIGN_SINGLE_BACKWARD_KERNEL"]
@@ -35,7 +39,6 @@ class CudaRoiAlignBackward(CudaRoiAlign):
     sources = ("roi_align_backward.cu", "roi_align_common.cuh")
     entry = "roi_align_multilevel_backward_cuda"
     error_fn = "roi_align_backward_error_string"
-    argtypes = (*_ARGS_HEAD, *_ARGS_TAIL)
 
     def __call__(
         self,
@@ -62,7 +65,7 @@ class CudaRoiAlignBackward(CudaRoiAlign):
                for s in plane_shapes]
         self._check(dfs, rois, levels, valid, image_height, image_width, crop_size, strides)
         self._launch(dfs, rois, levels, valid, image_height, image_width, crop_size, strides,
-                     grad)
+                     grad, int(vectorizable(dfs, grad)))
         return dfs
 
 

@@ -29,8 +29,8 @@ __all__ = ["CudaRoiAlign", "ROI_ALIGN_KERNEL", "ROI_ALIGN_SINGLE_KERNEL", "vecto
 _MAX_LEVELS = 8  # kMaxLevels of the source
 _MAX_CROP = 64  # kMaxCrop: shared-memory coordinate slots per axis
 
-# the C interface shared by the forward and the backward; the forward adds
-# its `vec` flag between the two parts
+# the C interface shared by the forward and the backward, with their `vec`
+# flag between the two parts
 _ARGS_HEAD = (
     ctypes.POINTER(ctypes.c_void_p),  # plane pointers (gradient planes for the backward)
     ctypes.POINTER(ctypes.c_int),  # heights
@@ -55,8 +55,10 @@ _ARGS_TAIL = (
 
 
 def vectorizable(p_list: Sequence[torch.Tensor], out: torch.Tensor) -> bool:
-    """Whether the forward moves 16-byte float4 units: C % 4 == 0 and every
-    plane and the output 16-byte aligned (else it takes its scalar path)."""
+    """Whether a RoIAlign kernel moves 16-byte float4 units: C % 4 == 0 and
+    every plane and `out` 16-byte aligned (else it takes its scalar path).
+    The forward passes its planes and output, the backward its gradient
+    planes and output gradient."""
     return out.shape[-1] % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (*p_list, out))
 
 
