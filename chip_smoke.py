@@ -30,14 +30,16 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    `predict` shape (B=1), a fixture with invalid rois, rois on the valid
    extent's edge and a roi of aspect > 10, the training shape (B=1,
    N=256), C = 42 (not a multiple of 4) and planes 4 bytes off a 16-byte
-   boundary (both on the kernel's scalar path); times of the kernel, the
-   plain version (one image at a time) and, as a near-equivalent reference
-   only, `grid_sample` over the four levels.
+   boundary (both on the kernel's scalar path), and image extents past the
+   planes (a tap past a plane weighs 0); times of the kernel, the plain
+   version (one image at a time) and, as a near-equivalent reference only,
+   `grid_sample` over the four levels.
 5. K5 (the fused-pyramid backward), K3 (the single-level backward, one
    launch per level) and K2 (the single-level forward, one launch per level)
    against their plain versions at the stock training shape (B=1, N=256),
    at B=4, and on an overlap-heavy and an edge / invalid / aspect-30
-   fixture, with N(0, 1) g; K5 and K3 also at B=1 with the training path's
+   fixture and at image extents past the planes, with N(0, 1) g; K5 and K3
+   also at B=1 with the training path's
    pool-sparse g (the 2x2 max pool's backward): each backward cell within
    1e-5 of sum |g * w| over its terms (float reductions add in no fixed
    order), K2 within atol/rtol 1e-5; errors, times from graph replays,
@@ -55,17 +57,30 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    path and read after it). Holds `predict` on the card against the port's
    CPU path on a small input. Prints each model's batch time, stages, one
    profiled call and peak memory.
-7. FPN ResNet-50 training, stock config, full width, seeded random weights:
-   one loss + backward on the card, with cuDNN off and then on, against the
-   port's CPU path (128x128, same weights and draws); then
-   `preprocess_train_image` -> `make_train_step` for 8 steps at B=1
-   (landscape and portrait interleaved), 3 at B=4 and 2 at B=1 with
-   `tpu_roi_align_fused_levels` False, each path's launch counts set to 0
-   before and checked after (per step: K1 1, K4 1, K5 1 fused; K1 1, K2 4,
-   K3 4 per level); losses finite, sample counts as configured; step times,
-   stages, one profiled step of each RoIAlign path, peak memory and conv +
-   linear work per step.
-8. Prints a JSON line with the five kernels' records, then as its last line
+7. FPN ResNet-50 training, then Faster R-CNN ResNet-50 (C4) training, each
+   with the stock config, full width, seeded random weights: one loss +
+   backward on the card, with cuDNN off and then on, against the port's CPU
+   path (128x128, same weights and draws); then `preprocess_train_image` ->
+   `make_train_step` for 8 steps at B=1 (landscape and portrait
+   interleaved) and 3 at B=4 (paths `fpn_train_b1`, `fpn_train_b4`,
+   `frcnn_train_b1`, `frcnn_train_b4`), and for FPN 2 at B=1 with
+   `tpu_roi_align_fused_levels` False; each path's launch counts set to 0
+   before and checked after (per step: FPN K1 1, K4 1, K5 1 fused, K1 1, K2
+   4, K3 4 per level; Faster R-CNN K1 1, its RoI crop being two matmuls);
+   losses finite, sample counts as configured; step times, stages, one
+   profiled B=1 step of each path, peak memory and conv + linear work per
+   step.
+8. `frcnn_voc_eval`: the VOC eval path on the card. A synthetic VOC layout
+   (annotation XMLs and `ImageSets/Main/test.txt`, the 8 requests with 1-8
+   seeded boxes each) in a temporary directory; the images go to
+   `preprocess_eval_image` as arrays (JPEG decoding is held against JAX on
+   the CPU, tests/test_torch_voc_data.py); `get_prediction_files` (batch 4)
+   -> per-class result files ->
+   `voc_eval` against the XMLs. Checks K1 once per batch (the RPN NMS) and
+   once per image (`eval_post_process`, the 20 classes in one call), that
+   the files parse back, a finite mAP in [0, 1], and AP exactly 1.0 for
+   every class present when the ground truth is written as detections.
+9. Prints a JSON line with the five kernels' records, then as its last line
    `{"ok": true, "device": {...}}`. Any failure raises: exit code != 0.
 """
 
@@ -76,6 +91,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -85,11 +101,17 @@ import torch
 import torch.nn.functional as F
 
 from tf_eager_object_detection_tpu_torch.config.config_factory import config_factory
+from tf_eager_object_detection_tpu_torch.data.label_map import PASCAL_CLASSES
 from tf_eager_object_detection_tpu_torch.data.preprocessing import (
     preprocess_eval_image,
     preprocess_train_image,
 )
 from tf_eager_object_detection_tpu_torch.evaluation.batched_inference import batched_im_detect
+from tf_eager_object_detection_tpu_torch.evaluation.pascal_eval_files import (
+    get_prediction_files,
+    write_voc_detection_files,
+)
+from tf_eager_object_detection_tpu_torch.evaluation.voc_eval import voc_eval
 from tf_eager_object_detection_tpu_torch.models.layers import FrozenBatchNorm
 from tf_eager_object_detection_tpu_torch.models.model_factory import model_factory
 from tf_eager_object_detection_tpu_torch.ops import nms as nms_mod
@@ -142,6 +164,9 @@ NMS_EDGE_CASES = [
 ]
 FPN_STRIDES = (4, 8, 16, 32)
 FPN_BUCKET = (640, 1024)
+# image extents past the bucket's planes: the last valid cell of every level
+# lies past the plane's last, where a tap weighs 0
+PAST_THE_PLANES = [[700, 1100], [656, 1040]]
 CROP = 14
 # NVIDIA H100 SXM, published: HBM bytes/s and float32 (non-tensor-core) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -542,6 +567,8 @@ def check_roi_kernel(card):
                                     special=True)),
         ("misaligned_planes", misaligned(roi_fixture(rng, 2, 64, [[600, 1000], [500, 380]],
                                                      invalid=0.3, special=True))),
+        ("past_the_planes", roi_fixture(rng, 2, 64, PAST_THE_PLANES, invalid=0.3,
+                                        special=True)),
     ]
     record = {}
     for name, args in cases:
@@ -597,13 +624,15 @@ def plain_backward(g, args):
 
 def axis_taps(lo, hi, dim, stride, crop, size):
     """Tap cells and weights [B, N, S, 2] of one axis, with the arithmetic of
-    `taps` in csrc/roi_align_common.cuh, and the in-range samples [B, N, S]."""
+    `taps` in csrc/roi_align_common.cuh (a tap past the plane weighs 0, its
+    cell clamped to the plane), and the in-range samples [B, N, S]."""
     v, ok = roi_mod.level_sample_coords(lo, hi, dim, stride, crop)
     c0 = v.floor()
+    cells = torch.stack([c0, c0 + 1.0], -1)
     w = torch.stack([(1.0 - (v - c0).abs()).clamp_min(0.0),
                      (1.0 - (v - (c0 + 1.0)).abs()).clamp_min(0.0)], -1)
-    cells = torch.stack([c0, c0 + 1.0], -1).long().clamp_max(size - 1)
-    return cells, w * ok[..., None], ok
+    w = torch.where(cells < size, w, torch.zeros_like(w))
+    return cells.long().clamp_max(size - 1), w * ok[..., None], ok
 
 
 def backward_work(g, args):
@@ -646,10 +675,8 @@ def backward_work(g, args):
             live_b = live_b & ~move
             a = torch.where(move[..., 0, 0], ix[..., j, 0], a)
             reach = live_unit[..., :, j, :] & inside[..., None, None]
-            live_a = live_a | reach
-            # a second tap clamped onto the plane's last column adds to column a
-            second = (wx[..., j, 1] != 0) & (ix[..., j, 1] != ix[..., j, 0])
-            live_b = live_b | (reach & second[..., None, None])
+            live_a = live_a | (reach & (wx[..., j, 0] != 0)[..., None, None])
+            live_b = live_b | (reach & (wx[..., j, 1] != 0)[..., None, None])
         reductions += int(((live_a.sum(-1, keepdim=True) + live_b.sum(-1, keepdim=True))
                            * row_taps).sum())
     return terms, live, reductions if vec else 0, 0 if vec else reductions
@@ -766,6 +793,8 @@ def check_training_kernels(card, counting):
         ("edges_invalid_elongated", roi_fixture(rng, 2, 64, [[600, 1000], [500, 380]],
                                                 invalid=0.3, special=True), dense_grad),
         ("train_b1_pool_sparse_g", train, pooled_grad),
+        ("past_the_planes", roi_fixture(rng, 2, 64, PAST_THE_PLANES, invalid=0.3, special=True),
+         dense_grad),
     ]
     record = {"roi_align_multilevel_backward": {}, "roi_align_single_level_backward": {},
               "roi_align_single_level": {}}
@@ -1035,21 +1064,32 @@ def drive_path(model_type, requests, card):
 
 
 # ----------------------------------------------------------------- training
-# small-input overrides of the card-vs-CPU training step (as tests/test_torch_fpn_train.py)
-TRAIN_CPU_CHECK = dict(rpn_proposal_train_pre_nms_sample_number=512,
-                       rpn_proposal_train_after_nms_sample_number=64, rpn_total_sample_number=64,
-                       rpn_pos_sample_max_number=32, roi_total_sample_number=32,
-                       roi_pos_sample_max_number=8, tpu_max_gt_boxes=8)
-# per training step: the RPN NMS, then K4 + K5 fused or K2 + K3 once per level
-PER_STEP = {
-    "fused": {"nms_alive_sorted": 1, "roi_align_multilevel": 1, "roi_align_multilevel_backward": 1},
-    "per_level": {"nms_alive_sorted": 1, "roi_align_single_level": 4,
-                  "roi_align_single_level_backward": 4},
+# small-input overrides of the card-vs-CPU training step (as
+# tests/test_torch_fpn_train.py and tests/test_torch_faster_rcnn_train.py;
+# Faster R-CNN takes anchor scales (2, 4, 8) so that its anchors fit a
+# 128x128 image) and the RPN score-layer scale that separates random-weight
+# proposals at the pre-NMS cut
+TRAIN_CPU_CHECK = {
+    "fpn": dict(rpn_proposal_train_pre_nms_sample_number=512),
+    "faster_rcnn": dict(rpn_proposal_train_pre_nms_sample_number=256, scales=[2, 4, 8]),
 }
+TRAIN_CPU_COMMON = dict(rpn_proposal_train_after_nms_sample_number=64, rpn_total_sample_number=64,
+                        rpn_pos_sample_max_number=32, roi_total_sample_number=32,
+                        roi_pos_sample_max_number=8, tpu_max_gt_boxes=8)
+# per training step: the RPN NMS, then for FPN K4 + K5 fused or K2 + K3 once
+# per level (Faster R-CNN crops with two matmuls: no RoIAlign kernel)
+PER_STEP = {
+    "fpn": {"nms_alive_sorted": 1, "roi_align_multilevel": 1,
+            "roi_align_multilevel_backward": 1},
+    "fpn_per_level": {"nms_alive_sorted": 1, "roi_align_single_level": 4,
+                      "roi_align_single_level_backward": 4},
+    "faster_rcnn": {"nms_alive_sorted": 1},
+}
+PATH_NAME = {"fpn": "fpn", "faster_rcnn": "frcnn"}
 
 
 # Card step vs the port's CPU step: every gradient within GRAD_TOL of its
-# tensor's largest value (the tolerance of tests/test_torch_fpn_train.py) with
+# tensor's largest value (the tolerance of the CPU training tests) with
 # cuDNN off, where the convolutions are PyTorch's own CUDA GEMMs; within
 # CUDNN_GRAD_TOL with cuDNN on, whose FFT and Winograd convolutions round
 # differently in float32 and move a few conv4 gradients of this random-weight
@@ -1058,41 +1098,41 @@ GRAD_TOL = 2e-3
 CUDNN_GRAD_TOL = 2e-2
 
 
-def grads_close(got, want, tol) -> float:
-    """Largest |got - want| / max|want| over the tensors; raises above `tol`."""
-    worst = 0.0
+def grads_close(got, want, tol) -> tuple[float, str]:
+    """(largest |got - want| / max|want| over the tensors, its tensor);
+    raises above `tol`."""
+    worst = (0.0, "")
     for name, w in want.items():
         g = got[name]
         err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
         require(err <= tol, f"gradient of {name} differs by {err:.3g} of its largest value "
                 f"(tolerance {tol})")
-        worst = max(worst, err)
+        worst = max(worst, (err, name))
     return worst
 
 
-def small_training_step(small, device, draws, inputs):
-    """One loss and backward of a seeded FPN on the small input -> (metrics,
-    gradients on the host)."""
-    det = model_factory("fpn", "resnet50", small, device=device, seed=1)
+def small_training_step(model_type, small, device, draws, inputs):
+    """One loss and backward of a seeded detector on the small input ->
+    (metrics, gradients of the trainable tensors on the host)."""
+    det = model_factory(model_type, "resnet50", small, device=device, seed=1)
     with torch.no_grad():
         det.rpn_head.rpn_score_conv.weight.mul_(20.0)
     total, metrics = det.loss_fn(*inputs, TrainDraws(*(t.to(device) for t in draws)))
     total.backward()
     return ({k: float(v.detach()) for k, v in metrics.items()},
-            {n: p.grad.cpu() for n, p in det.named_parameters()})
+            {n: p.grad.cpu() for n, p in det.named_parameters() if p.requires_grad})
 
 
-def check_training_against_cpu(cfg, card):
+def check_training_against_cpu(model_type, cfg, card):
     """One training loss and backward on the card against the port's CPU path
-    (held against JAX by tests/test_torch_fpn_train.py) on a 128x128 input,
-    same seeded weights and the same draws: losses rtol 1e-4, counts exact,
-    every gradient within GRAD_TOL (cuDNN off) or CUDNN_GRAD_TOL (cuDNN on)
-    of its tensor's largest value. A RoI gradient that failed to reach the
-    pyramid would show in the neck's and the backbone's gradients at O(1).
-    The RPN score layer is scaled so that random-weight proposals separate,
-    as in the CPU tests."""
+    (held against JAX by the CPU training tests) on a 128x128 input, same
+    seeded weights and the same draws: losses rtol 1e-4, counts exact, every
+    gradient within GRAD_TOL (cuDNN off) or CUDNN_GRAD_TOL (cuDNN on) of its
+    tensor's largest value. A RoI gradient that failed to reach the
+    backbone would show in its gradients at O(1). The RPN score layer is
+    scaled so that random-weight proposals separate, as in the CPU tests."""
     small = dict(cfg, tpu_image_buckets=[[128, 128]], image_min_size=128, image_max_size=128,
-                 **TRAIN_CPU_CHECK)
+                 **TRAIN_CPU_COMMON, **TRAIN_CPU_CHECK[model_type])
     rng = np.random.RandomState(3)
     image = rng.randn(1, 128, 128, 3).astype(np.float32)
     hw = np.asarray([[120, 124]], np.int32)
@@ -1101,23 +1141,29 @@ def check_training_against_cpu(cfg, card):
     gt_mask = np.arange(8)[None] < 3
     gt_labels = np.asarray([[3, 7, 12, 0, 0, 0, 0, 0]], np.int32)
     inputs = (image, hw, gt, gt_mask, gt_labels)
-    anchors = 3 * sum((-(-128 // s)) ** 2 for s in small["anchor_stride_list"])
+    if model_type == "fpn":
+        anchors = 3 * sum((-(-128 // s)) ** 2 for s in small["anchor_stride_list"])
+    else:
+        anchors = (128 // small["extractor_stride"]) ** 2 * 3 * len(small["scales"])
     draws = TrainDraws.sample(torch.Generator().manual_seed(5), 1, anchors, 64, 32)
-    cm, cg = small_training_step(small, "cpu", draws, inputs)
+    cm, cg = small_training_step(model_type, small, "cpu", draws, inputs)
+    require(cm["num_rpn_fg"] > 0, f"{model_type} small step without an RPN foreground: {cm}")
     for cudnn, tol in ((False, GRAD_TOL), (True, CUDNN_GRAD_TOL)):
         torch.backends.cudnn.enabled = cudnn
         try:
-            gm, gg = small_training_step(small, "cuda", draws, inputs)
+            gm, gg = small_training_step(model_type, small, "cuda", draws, inputs)
         finally:
             torch.backends.cudnn.enabled = True
         for k in cm:
             ktol = 1e-4 * abs(cm[k]) if k.endswith("loss") else 0.0
-            require(abs(gm[k] - cm[k]) <= ktol, f"training {k}: cuda {gm[k]} vs cpu {cm[k]}")
-        worst = grads_close(gg, cg, tol)
-        print(f"fpn training loss + backward 128x128, cuda (cuDNN {'on' if cudnn else 'off'}) vs "
-              f"the port's cpu path: losses within rtol 1e-4 (total {gm['total_loss']:.6f} vs "
-              f"{cm['total_loss']:.6f}), counts equal, {len(cg)} gradients within {worst:.3g} "
-              f"of their largest value (tolerance {tol})  ({card})")
+            require(abs(gm[k] - cm[k]) <= ktol,
+                    f"{model_type} training {k}: cuda {gm[k]} vs cpu {cm[k]}")
+        worst, name = grads_close(gg, cg, tol)
+        print(f"{model_type} training loss + backward 128x128, cuda (cuDNN "
+              f"{'on' if cudnn else 'off'}) vs the port's cpu path: losses within rtol 1e-4 "
+              f"(total {gm['total_loss']:.6f} vs {cm['total_loss']:.6f}), counts equal, "
+              f"{len(cg)} gradients within {worst:.3g} of their largest value ({name}; "
+              f"tolerance {tol})  ({card})")
 
 
 def make_train_items(seed: int = 0):
@@ -1172,9 +1218,10 @@ def train_path(name, step, batches, gen, cfg, per_step, card):
           f"median after the first {med:.2f} ms = {b * 1e3 / med:.3f} images/s; last step "
           f"losses rpn_cls {last['rpn_cls_loss']:.4f} rpn_reg {last['rpn_reg_loss']:.4f} "
           f"roi_cls {last['roi_cls_loss']:.4f} roi_reg {last['roi_reg_loss']:.4f}, samples "
-          f"rpn fg/bg {last['num_rpn_fg']:.0f}/{last['num_rpn_bg']:.0f}, roi fg "
-          f"{last['num_roi_fg']:.0f}, proposals {last['num_proposals']:.0f}; peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  ({card})")
+          f"rpn fg/bg {last['num_rpn_fg']:.0f}/{last['num_rpn_bg']:.0f} (of "
+          f"{cfg['rpn_total_sample_number']}), roi fg {last['num_roi_fg']:.0f} (of "
+          f"{cfg['roi_total_sample_number']} sampled), proposals {last['num_proposals']:.0f}; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  ({card})")
     return launches
 
 
@@ -1191,20 +1238,20 @@ def train_stages(det, opt, batch, gen, card):
     _, t_opt = timed(opt.step)
     tflop = (3 * fwd - first) / 1e12
     step_ms = t_fwd + t_bwd + t_opt
-    print(f"fpn train stages, batch {batch[0].shape[0]} at {tuple(batch[0].shape[1:3])}: "
-          f"forward + proposals + targets {t_fwd:.2f} ms, backward {t_bwd:.2f} ms, optimizer "
-          f"{t_opt:.2f} ms; conv + linear work {tflop:.4f} TFLOP per step, "
-          f"{tflop / step_ms * 1e3:.2f} TFLOP/s over the step, "
+    print(f"{det.model_type} train stages, batch {batch[0].shape[0]} at "
+          f"{tuple(batch[0].shape[1:3])}: forward + proposals + targets {t_fwd:.2f} ms, "
+          f"backward {t_bwd:.2f} ms, optimizer {t_opt:.2f} ms; conv + linear work "
+          f"{tflop:.4f} TFLOP per step, {tflop / step_ms * 1e3:.2f} TFLOP/s over the step, "
           f"{tflop / step_ms * 1e3 / (F32_FLOP_PER_S / 1e12):.3f} of the f32 peak  ({card})")
 
 
 @torch.no_grad()
-def calibrate_frozen_bn(det, images):
+def calibrate_frozen_bn(det, forward):
     """Set every FrozenBatchNorm's statistics to its input's per-channel mean
-    and variance on `images`, in forward order, as a pretrained backbone's
-    would normalize. Without it, random weights and caffe-scaled pixels give
-    activations that grow through the 50 layers, logits in the hundreds,
-    and training steps that diverge."""
+    and variance in one call of `forward`, in forward order, as a pretrained
+    network's would normalize. Without it, random weights and caffe-scaled
+    pixels give activations that grow through the 50 layers, logits in the
+    hundreds, and training steps that diverge."""
 
     def hook(bn, inputs):
         x = inputs[0]
@@ -1214,20 +1261,20 @@ def calibrate_frozen_bn(det, images):
     handles = [m.register_forward_pre_hook(hook) for m in det.modules()
                if isinstance(m, FrozenBatchNorm)]
     try:
-        det.extractor(images)
+        forward()
     finally:
         for h in handles:
             h.remove()
 
 
-def drive_training(card):
-    """FPN ResNet-50 training at full width, stock config, seeded random
-    weights: 8 steps at B=1 (landscape and portrait interleaved), 3 at B=4
-    (landscape), 2 at B=1 with `tpu_roi_align_fused_levels` False. Returns
-    {path: launch counts}."""
-    cfg = dict(config_factory("pascal", "fpn"))
-    check_training_against_cpu(cfg, card)
-    det = model_factory("fpn", "resnet50", cfg, device="cuda", seed=0)
+def drive_training(model_type, card):
+    """Training at full width, stock config, seeded random weights: 8 steps
+    at B=1 (landscape and portrait interleaved), 3 at B=4 (landscape); FPN
+    also 2 at B=1 with `tpu_roi_align_fused_levels` False. Returns {path:
+    launch counts}."""
+    cfg = dict(config_factory("pascal", model_type))
+    check_training_against_cpu(model_type, cfg, card)
+    det = model_factory(model_type, "resnet50", cfg, device="cuda", seed=0)
     opt = make_optimizer(cfg, det)
     step = make_train_step(det, opt)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1236,22 +1283,150 @@ def drive_training(card):
     b1 = [train_batch([it], cfg, rng) for it in items]
     landscape = [it for it in items if it[0].shape[0] < it[0].shape[1]][:BATCH]
     b4 = [train_batch(landscape, cfg, rng) for _ in range(3)]
-    calibrate_frozen_bn(det, b4[0][0])
+    if model_type == "fpn":  # conv5 is inside the extractor
+        calibrate_frozen_bn(det, lambda: det.extractor(b4[0][0]))
+    else:  # the backbone, then the conv5 RoI head on the sampled rois
+        calib = torch.Generator(device="cuda").manual_seed(1)
+        calibrate_frozen_bn(det, lambda: det.loss_fn(*b4[0], calib))
     step(b1[0], gen)  # warm-up: cuDNN algorithm choice, allocator
     step(b4[0], gen)
-    paths = {"fpn_train_b1": train_path("fpn_train_b1", step, b1, gen, cfg, PER_STEP["fused"], card),
-             "fpn_train_b4": train_path("fpn_train_b4", step, b4, gen, cfg, PER_STEP["fused"], card)}
+    name = PATH_NAME[model_type]
+    paths = {f"{name}_train_b1": train_path(f"{name}_train_b1", step, b1, gen, cfg,
+                                            PER_STEP[model_type], card),
+             f"{name}_train_b4": train_path(f"{name}_train_b4", step, b4, gen, cfg,
+                                            PER_STEP[model_type], card)}
     for batch in (b1[0], b4[0]):
         train_stages(det, opt, batch, gen, card)
     device_profile(lambda: step(b1[0], gen), card)
-    det.cfg["tpu_roi_align_fused_levels"] = False
-    step(b1[1], gen)  # warm-up of the per-level path
-    paths["fpn_train_per_level"] = train_path("fpn_train_per_level", step, b1[:2], gen, cfg,
-                                              PER_STEP["per_level"], card)
-    device_profile(lambda: step(b1[0], gen), card)
+    if model_type == "fpn":
+        det.cfg["tpu_roi_align_fused_levels"] = False
+        step(b1[1], gen)  # warm-up of the per-level path
+        paths["fpn_train_per_level"] = train_path("fpn_train_per_level", step, b1[:2], gen, cfg,
+                                                  PER_STEP["fpn_per_level"], card)
+        device_profile(lambda: step(b1[0], gen), card)
     del det, opt, step
     torch.cuda.empty_cache()
     return paths
+
+
+# --------------------------------------------------------------- VOC eval
+def voc_annotation(image_id, h, w, objects) -> str:
+    """A VOC annotation XML: objects (class name, [x1, y1, x2, y2] 1-based)."""
+    objs = "".join(
+        f"<object><name>{name}</name><pose>Unspecified</pose><truncated>0</truncated>"
+        f"<difficult>0</difficult><bndbox><xmin>{x1}</xmin><ymin>{y1}</ymin><xmax>{x2}</xmax>"
+        f"<ymax>{y2}</ymax></bndbox></object>" for name, (x1, y1, x2, y2) in objects)
+    return (f"<annotation><filename>{image_id}.jpg</filename><size><width>{w}</width>"
+            f"<height>{h}</height><depth>3</depth></size>{objs}</annotation>")
+
+
+def write_voc_layout(root: Path, requests, seed: int = 0):
+    """`Annotations/*.xml` and `ImageSets/Main/test.txt` for the requests,
+    1-8 boxes each from a seeded generator -> (image ids, {id: objects})."""
+    rng = np.random.RandomState(seed)
+    (root / "Annotations").mkdir(parents=True)
+    (root / "ImageSets" / "Main").mkdir(parents=True)
+    ids, truth = [], {}
+    for k, img in enumerate(requests):
+        h, w = img.shape[:2]
+        image_id = f"{k:06d}"
+        objects = []
+        for _ in range(rng.randint(1, 9)):
+            x1, y1 = rng.randint(1, w - 40), rng.randint(1, h - 40)
+            box = [x1, y1, rng.randint(x1 + 20, w + 1), rng.randint(y1 + 20, h + 1)]
+            objects.append((PASCAL_CLASSES[rng.randint(20)], box))
+        (root / "Annotations" / f"{image_id}.xml").write_text(voc_annotation(image_id, h, w,
+                                                                             objects))
+        ids.append(image_id)
+        truth[image_id] = objects
+    (root / "ImageSets" / "Main" / "test.txt").write_text("".join(f"{i}\n" for i in ids))
+    return ids, truth
+
+
+def voc_map(root: Path, fmt: str, classes) -> dict:
+    """{class: AP} of the result files `fmt` against the layout's XMLs
+    (area under the precision-recall curve)."""
+    return {c: voc_eval(fmt, str(root / "Annotations" / "{}.xml"),
+                        str(root / "ImageSets" / "Main" / "test.txt"), c,
+                        str(root / f"cache_{Path(fmt).parent.name}"), 0.5, False)[2]
+            for c in classes}
+
+
+def check_result_files(paths, ids, sizes, cap):
+    """Every line of the per-class files parses back: a known image id, a
+    score in [0, 1], 1-based corners inside the raw image; at most `cap`
+    lines an image. Returns the number of detections."""
+    per_image = dict.fromkeys(ids, 0)
+    for path in paths:
+        for line in Path(path).read_text().splitlines():
+            f = line.split(" ")
+            require(len(f) == 6 and f[0] in per_image, f"result line {line!r}")
+            score, x1, y1, x2, y2 = map(float, f[1:])
+            h, w = sizes[f[0]]
+            require(0.0 <= score <= 1.0 and 1.0 <= x1 <= x2 <= w and 1.0 <= y1 <= y2 <= h,
+                    f"result line {line!r} outside image {h}x{w}")
+            per_image[f[0]] += 1
+    require(max(per_image.values()) <= cap, f"detections per image {per_image}")
+    return sum(per_image.values())
+
+
+def drive_voc_eval(requests, card):
+    """The VOC eval path on the card: Faster R-CNN ResNet-50 at full width
+    (seeded random weights, stock config) over a synthetic VOC layout of the
+    8 requests: `preprocess_eval_image` on the arrays (JPEG decoding is
+    tested on the CPU), `get_prediction_files` (batch 4) -> per-class files
+    -> `voc_eval` against the XMLs. K1 once per batch (the RPN NMS) and once
+    per image (`eval_post_process`, the 20 classes in one call); the files
+    parse back; the mAP is finite in [0, 1]; the ground truth written as
+    detections scores AP 1.0 exactly for every class present. Returns {path:
+    launch counts}."""
+    cfg = dict(config_factory("pascal", "faster_rcnn"))
+    det = model_factory("faster_rcnn", "resnet50", cfg, device="cuda", seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "VOC2007"
+        ids, truth = write_voc_layout(root, requests)
+        sizes = {i: img.shape[:2] for i, img in zip(ids, requests)}
+        (root / "results").mkdir()
+        fmt = str(root / "results" / "det_test_{}.txt")
+        items = [preprocess_eval_image(img, cfg) for img in requests]
+        get_prediction_files(det, iter(items), ids, fmt, batch_size=BATCH)  # warm-up
+        reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        paths = get_prediction_files(det, iter(items), ids, fmt, batch_size=BATCH)
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t) * 1e3
+        launches = launch_counts()
+        buckets = {tuple(it[0].shape[:2]) for it in items}
+        batches = sum(-(-sum(tuple(it[0].shape[:2]) == b for it in items) // BATCH)
+                      for b in buckets)
+        expected = dict.fromkeys(KERNELS, 0)
+        expected["nms_alive_sorted"] = batches + len(items)
+        print(f"frcnn_voc_eval: kernel launches {launches} (expected {expected}: {batches} "
+              f"batches, {len(items)} images)")
+        require(launches == expected, f"frcnn_voc_eval launches {launches} != {expected}")
+        n_dets = check_result_files(paths, ids, sizes, 50)
+        present = sorted({name for objs in truth.values() for name, _ in objs})
+        aps = voc_map(root, fmt, present)
+        m = float(np.mean(list(aps.values())))
+        require(np.isfinite(m) and 0.0 <= m <= 1.0, f"frcnn_voc_eval mAP {m}")
+        # the ground truth as detections (0-based corners, score 1) scores 1.0
+        gt = [[np.asarray([[x1 - 1, y1 - 1, x2 - 1, y2 - 1, 1.0] for name, (x1, y1, x2, y2)
+                           in truth[i] if name == c], np.float64).reshape(-1, 5)
+               for c in PASCAL_CLASSES] for i in ids]
+        (root / "truth").mkdir()
+        gt_fmt = str(root / "truth" / "gt_{}.txt")
+        write_voc_detection_files(gt, ids, PASCAL_CLASSES, gt_fmt)
+        gt_aps = voc_map(root, gt_fmt, present)
+        require(all(ap == 1.0 for ap in gt_aps.values()), f"ground truth APs {gt_aps}")
+    print(f"frcnn_voc_eval: {len(ids)} images of 1-8 boxes, {len(present)} classes present, "
+          f"{n_dets} detections in {len(paths)} result files (parsed back), mAP over the "
+          f"present classes {m:.4f} (random weights), ground truth as detections: AP 1.0 for "
+          f"all {len(present)} classes; get_prediction_files {eval_ms:.1f} ms for "
+          f"{len(ids)} images incl. host post-processing and file writes  ({card})")
+    del det
+    torch.cuda.empty_cache()
+    return {"frcnn_voc_eval": launches}
 
 
 def main() -> int:
@@ -1276,8 +1451,11 @@ def main() -> int:
     requests = make_requests()
     paths = {m: drive_path(m, requests, card) for m in ("faster_rcnn", "fpn")}
     print(f"serving phases done at {time.perf_counter() - t_start:.1f} s")
-    paths.update(drive_training(card))
+    for model_type in ("fpn", "faster_rcnn"):
+        paths.update(drive_training(model_type, card))
     print(f"training phases done at {time.perf_counter() - t_start:.1f} s")
+    paths.update(drive_voc_eval(requests, card))
+    print(f"eval phase done at {time.perf_counter() - t_start:.1f} s")
 
     main_cases = {  # kernel -> (its records, the main-path case, the case's shape)
         "nms_alive_sorted": (nms, NMS_MAIN, "[4,6000]->1000 @0.7"),

@@ -20,9 +20,13 @@ checkout on a machine with a CUDA GPU and nvcc. It imports nothing of JAX.
    torch.profiler; the scan's cycles per word in block 0, split into warp
    0's gather and word resolution, the other warps' OR step and thread 0's
    barrier wait.
-3. K4 at the served (B=4, N=1000) and training (B=1, N=256) fixtures and K2
-   (one launch per level at B=1, N=256): this checkout's output equal bit
-   for bit to the other's; times as for K1.
+3. K4 at the served (B=4, N=1000) and training (B=1, N=256) fixtures, on
+   an edge / invalid / aspect-30 fixture and on its scalar path (C = 42,
+   planes 4 bytes off alignment), and K2 (one launch per level at B=1,
+   N=256): this checkout's output equal bit for bit to the other's; times
+   as for K1. Then both at image extents past the
+   planes, held against the plain version (this checkout must agree within
+   atol/rtol 1e-5; the other's error is printed).
 4. K5 at the training fixtures (B=1, N=256 with dense g and with the 2x2
    max pool's sparse g; B=4) and K3 (one launch per level at B=1): the two
    checkouts' gradients within 1e-5 of sum |g * w| of each other (float
@@ -229,8 +233,14 @@ def ab_forward(libs, src, rounds: int, card: str) -> None:
     served = cs.roi_fixture(rng, cs.BATCH, 1000,
                             [[600, 800], [600, 1000], [576, 768], [640, 853]])
     train = cs.roi_fixture(rng, 1, cs.TRAIN_ROIS, [[600, 800]], invalid=0.0)
+    fits = [[600, 1000], [500, 380]]
+    edges = cs.roi_fixture(rng, 2, 64, fits, invalid=0.3, special=True)
     cases = [("K4 served B=4 N=1000", [served]), ("K4 train B=1 N=256", [train]),
-             ("K2 train B=1 N=256, 4 launches", cs.per_level(train))]
+             ("K2 train B=1 N=256, 4 launches", cs.per_level(train)),
+             ("K4 edges / invalid / aspect 30", [edges]),
+             ("K4 C=42 (scalar path)",
+              [cs.roi_fixture(rng, 2, 64, fits, c=42, invalid=0.3, special=True)]),
+             ("K4 planes 4 bytes off alignment (scalar path)", [cs.misaligned(edges)])]
     for name, args_list in cases:
         call = lambda kern: [kern(*a) for a in args_list]  # noqa: E731
         other, this = call(roi["other"]), call(roi["this"])
@@ -242,6 +252,13 @@ def ab_forward(libs, src, rounds: int, card: str) -> None:
               f"{fmt(ab_times(roi, call, rounds))}; stages other "
               f"{stage_ms(lambda: call(roi['other']))}, this "
               f"{stage_ms(lambda: call(roi['this']))}  ({card})")
+    past = cs.roi_fixture(rng, 2, 64, cs.PAST_THE_PLANES, invalid=0.3, special=True)
+    want = cs.plain_per_image(past)
+    err = {side: float((roi[side](*past) - want).abs().max()) for side in ("other", "this")}
+    cs.require(float(((roi["this"](*past) - want).abs() - 1e-5 * want.abs()).max()) <= 1e-5,
+               "K4 past the planes: this checkout differs from the plain version")
+    print(f"K4 image extents past the planes: max abs err against the plain version, other "
+          f"{err['other']:.3g}, this {err['this']:.3g} (atol/rtol 1e-5)  ({card})")
 
 
 def ab_backward(libs, src, rounds: int, card: str) -> None:

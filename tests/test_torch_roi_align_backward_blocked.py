@@ -11,8 +11,8 @@ channel. The block's 128 threads take its (row r, unit q) elements
 e = r * units + q, thread t the e = t, t + 128, ...; a thread loads the g
 units of its row's samples, then walks them in order, keeping in registers
 the sums r_a, r_b of w_x * g of the two current columns a and a + 1 (a
-sample's column taps; a second tap that the plane's last column clamps onto
-the first adds to r_a): when a sample's first column moves on by one,
+sample's column taps; a tap past the plane weighs 0 and adds nothing): when
+a sample's first column moves on by one,
 column a is complete and r_b becomes r_a; when it jumps (or moves back, for
 a roi with x2 < x1), both are. A complete column's sum, unless it is all
 exactly zero, is added as w_y * sum to each of the row's taps of nonzero
@@ -81,12 +81,13 @@ def sample_coord(lo, hi, dim, stride, crop):
 
 
 def taps(v, size):
-    """`taps`: cell indices [2, crop] (clamped to the plane) and tent weights [2, crop]."""
+    """`taps`: cell indices [2, crop] (clamped to the plane) and tent weights
+    [2, crop], 0 for a tap on a cell past the plane."""
     c0 = np.floor(v)
+    cells = np.stack([c0, c0 + 1]).astype(np.int64)
     w = np.stack([np.maximum(F32(0), F32(1) - np.abs(v - c0)),
                   np.maximum(F32(0), F32(1) - np.abs(v - (c0 + F32(1))))])
-    i = np.minimum(np.stack([c0, c0 + 1]).astype(np.int64), size - 1)
-    return i, w
+    return np.minimum(cells, size - 1), np.where(cells < size, w, F32(0))
 
 
 def thread_elements(total):
@@ -173,10 +174,9 @@ def walk_row(plane, terms, g, iy, wy, ix, wx, x_in, combine):
                 ra, in_a = zero, []
             rb, in_b = zero, []
             a = int(ix[0, j])
-        ra, in_a = ra + wx[0, j] * g[j], in_a + [(j, 0)]
-        if wx[1, j] != 0 and ix[1, j] == a:  # clamped onto column a by the plane's edge
-            ra, in_a = ra + wx[1, j] * g[j], in_a + [(j, 1)]
-        elif wx[1, j] != 0:
+        if wx[0, j] != 0:  # 0 only past the plane, where the kernel adds +-0
+            ra, in_a = ra + wx[0, j] * g[j], in_a + [(j, 0)]
+        if wx[1, j] != 0:
             rb, in_b = rb + wx[1, j] * g[j], in_b + [(j, 1)]
     add_column(a, ra, in_a)
     add_column(a + 1, rb, in_b)
@@ -384,39 +384,12 @@ def test_invalid_and_outside_rois_add_nothing():
         np.testing.assert_array_equal(d, e)
 
 
-def clamped_backward(g, plane_shapes, rois, levels, valid, ih, iw, crop, strides):
-    """The VJP of the forward as csrc/roi_align.cu computes it, by dense
-    weights: each sample's two taps per axis at their plane-clamped cells
-    (both on the last cell where the plane ends before the image's last
-    valid cell), summed there -> gradient planes. Where the image extents
-    fit the planes this is the plain backward; past them the plain version's
-    tent over the plane's cells drops the clamped tap instead."""
-    dfs = []
-    for k, (shape, s) in enumerate(zip(plane_shapes, strides)):
-        h, w = shape[1:3]
-        wts = []
-        for lo, hi, dims, size in ((1, 3, ih, h), (0, 2, iw, w)):
-            dense = np.zeros(rois.shape[:2] + (crop, size), F32)
-            for bi in range(rois.shape[0]):
-                for ri in range(rois.shape[1]):
-                    v, inside = sample_coord(rois[bi, ri, lo], rois[bi, ri, hi], dims[bi], s, crop)
-                    cells, wt = taps(v, size)
-                    for t in (0, 1):
-                        np.add.at(dense[bi, ri], (np.arange(crop), cells[t]), wt[t] * inside)
-            wts.append(dense)
-        keep = ((levels == k) & valid).astype(F32)[..., None, None]
-        dfs.append(np.einsum("bnih,bnjw,bnijc->bhwc", wts[0] * keep, wts[1], g).astype(F32))
-    return dfs
-
-
-@pytest.mark.parametrize("vec", [True, False], ids=["float4", "scalar"])
-def test_image_past_the_planes_adds_clamped_taps_to_the_last_cell(vec):
-    """Image extents past the planes (80x80 images on the planes of a 64x64
-    bucket: a sample's last valid cell lies past the plane's last): a second
-    tap clamped onto the plane's last column or row adds there, as the
-    forward reads it, and never past the plane; every term once."""
-    rng = np.random.RandomState(60)
-    planes = _planes(rng, 2, 8)
+def _past_the_planes(seed, c=8):
+    """80x80 and 72x72 images on the planes of a 64x64 bucket: a sample's
+    last valid cell lies past the plane's last. The first two rois of each
+    image are its whole extent and its bottom-right corner, on P2."""
+    rng = np.random.RandomState(seed)
+    planes = _planes(rng, 2, c)
     ih = iw = np.asarray([80.0, 72.0], F32)
     x1, y1 = rng.uniform(0, 70, (2, 12)), rng.uniform(0, 70, (2, 12))
     side = rng.uniform(4, 60, (2, 12, 2))
@@ -426,16 +399,107 @@ def test_image_past_the_planes_adds_clamped_taps_to_the_last_cell(vec):
     levels = rng.randint(0, 4, (2, 12)).astype(np.int64)
     levels[:, :2] = 0
     valid = np.ones((2, 12), bool)
-    g = rng.randn(2, 12, 14, 14, 8).astype(F32)
-    shapes = [p.shape for p in planes]
+    g = rng.randn(2, 12, 14, 14, c).astype(F32)
+    return planes, rois, levels, valid, ih, iw, g
+
+
+def _band(rois, levels, valid, ih, iw, planes, crop=14):
+    """Per roi and sample [B, N, S, S]: whether the sample lies past its
+    plane's last cell h - 1 on an axis but before cell h (the band where the
+    tent over the plane's cells gives the last cell 1 - (v - (h - 1)))."""
+    out = np.zeros(rois.shape[:2] + (crop, crop), bool)
+    for k, (p, s) in enumerate(zip(planes, STRIDES)):
+        on = ((levels == k) & valid)[..., None, None]
+        for bi in range(rois.shape[0]):
+            for ri in range(rois.shape[1]):
+                ys, _ = sample_coord(rois[bi, ri, 1], rois[bi, ri, 3], ih[bi], s, crop)
+                xs, _ = sample_coord(rois[bi, ri, 0], rois[bi, ri, 2], iw[bi], s, crop)
+                by = (ys > p.shape[1] - 1 + EDGE_EPS) & (ys < p.shape[1])
+                bx = (xs > p.shape[2] - 1 + EDGE_EPS) & (xs < p.shape[2])
+                out[bi, ri] |= (by[:, None] | bx[None, :]) & on[bi, ri]
+    return out
+
+
+@pytest.mark.parametrize("vec", [True, False], ids=["float4", "scalar"])
+def test_image_past_the_planes_adds_clamped_taps_to_the_last_cell(vec):
+    """Image extents past the planes: a tap on a cell past the plane weighs 0
+    (its index clamped to the plane, so nothing is written past it), and the
+    walk equals the port's plain backward, whose tent runs over the plane's
+    own cells; every live term once. (The name is older than the rule: the
+    kernels used to put a clamped tap's weight on the plane's last cell.)"""
+    planes, rois, levels, valid, ih, iw, g = _past_the_planes(60)
     xs, _ = sample_coord(79.0, 79.0, 80.0, STRIDES[0], 14)
-    cells, wt = taps(xs, shapes[0][2])
-    assert (cells[1] == cells[0]).all() and (wt[1] != 0).any()  # the clamp is exercised
+    cells, wt = taps(xs, planes[0].shape[2])
+    assert (xs > planes[0].shape[2] - 1).all() and (wt == 0).all()  # past the plane: weight 0
+    assert (cells == planes[0].shape[2] - 1).all()  # clamped to the plane
     dfs, _ = _model(g, planes, rois, levels, valid, 14, ih=ih, iw=iw, vec=vec)
-    args = (rois, levels, valid, ih, iw, 14, STRIDES)
-    want = clamped_backward(g, shapes, *args)
-    scale = clamped_backward(np.abs(g), shapes, *args)
-    _close(dfs, want, scale)
+    ref, scale = _plain(g, planes, rois, levels, valid, 14, ih=ih, iw=iw)
+    _close(dfs, ref, scale)
+    assert _band(rois, levels, valid, ih, iw, planes).any()  # the partial tent is exercised
+
+
+def _pallas_ml(planes, rois, levels, valid, ih, iw):
+    """`pallas_roi_align_multilevel` in interpret mode, one image per call."""
+    return jnp.concatenate([pallas_roi_align_multilevel(
+        tuple(p[i:i + 1] for p in planes), jnp.asarray(rois[i:i + 1]),
+        jnp.asarray(levels[i:i + 1]), jnp.asarray(ih[i:i + 1]), jnp.asarray(iw[i:i + 1]), 14,
+        strides=STRIDES, valid=jnp.asarray(valid[i:i + 1].astype(np.int32)), interpret=True,
+    ) for i in range(rois.shape[0])])
+
+
+@pytest.mark.parametrize("seed", [61, 62])
+def test_plain_past_the_planes_matches_pallas_k4_and_k5(seed):
+    """Image extents past the planes: the port's plain forward against the
+    Pallas K4 (`pallas_roi_align_multilevel`, interpret mode, one image per
+    call), which clips a sample to the valid extent and takes its tent over
+    the zero-padded plane, within atol 1e-5; the plain backward against that
+    call's VJP (K5) within 1e-5 of sum |g * w| plus atol 1e-5 (XLA's
+    contracted coordinate arithmetic); the kernels' walk equals both."""
+    planes, rois, levels, valid, ih, iw, g = _past_the_planes(seed)
+    args = (*_t(rois, levels, valid, ih, iw), 14, STRIDES)
+    plain = port.roi_align_multilevel_reference([torch.from_numpy(p) for p in planes], *args)
+    jp = tuple(jnp.asarray(p) for p in planes)
+    want, vjp = jax.vjp(lambda ps: _pallas_ml(ps, rois, levels, valid, ih, iw), jp)
+    np.testing.assert_allclose(plain.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    (want_d,) = vjp(jnp.asarray(g))
+    ref, scale = _plain(g, planes, rois, levels, valid, 14, ih=ih, iw=iw)
+    _close(ref, [np.asarray(w) for w in want_d], scale, atol=1e-5)
+    dfs, _ = _model(g, planes, rois, levels, valid, 14, ih=ih, iw=iw)
+    _close(dfs, [np.asarray(w) for w in want_d], scale, atol=1e-5)
+    assert _band(rois, levels, valid, ih, iw, planes).any()
+
+
+def test_plain_past_the_planes_against_jax_einsum():
+    """Image extents past the planes, against JAX's einsum RoIAlign
+    (`_einsum_equiv`, `crop_and_resize` on boxes normalized by the plane):
+    its in-range test runs over the plane, not the valid extent, so it
+    zeroes a whole sample past the plane's last cell. Past cell h both give
+    0; between h - 1 and h the port (as the Pallas kernel) gives the last
+    cell 1 - (v - (h - 1)) and JAX's einsum gives 0. So the forwards agree
+    within atol 1e-5 on every sample outside that band, the einsum is 0 on
+    the band, and the port is not; the backwards agree where g is 0 on the
+    band."""
+    planes, rois, levels, valid, ih, iw, g = _past_the_planes(63)
+    band = _band(rois, levels, valid, ih, iw, planes)
+    assert band.any()
+
+    def einsum(ps):
+        return sum(_einsum_equiv(p, jnp.asarray(rois), jnp.asarray(((levels == k) & valid)
+                                                                    .astype(F32)),
+                                 jnp.asarray(ih), jnp.asarray(iw), 14, s)
+                   for k, (p, s) in enumerate(zip(ps, STRIDES)))
+
+    args = (*_t(rois, levels, valid, ih, iw), 14, STRIDES)
+    plain = port.roi_align_multilevel_reference([torch.from_numpy(p) for p in planes],
+                                                *args).numpy()
+    want, vjp = jax.vjp(einsum, tuple(jnp.asarray(p) for p in planes))
+    want = np.asarray(want)
+    np.testing.assert_allclose(plain[~band], want[~band], rtol=0, atol=1e-5)
+    assert (want[band] == 0).all() and np.abs(plain[band]).max() > 0.1
+    g_off_band = np.where(band[..., None], F32(0), g)
+    (want_d,) = vjp(jnp.asarray(g_off_band))
+    ref, scale = _plain(g_off_band, planes, rois, levels, valid, 14, ih=ih, iw=iw)
+    _close(ref, [np.asarray(w) for w in want_d], scale, atol=1e-5)
 
 
 @pytest.mark.parametrize("c,offset,want", [(4, 0, True), (256, 0, True), (42, 0, False),

@@ -10,10 +10,10 @@ sum taken in another order moves by a few ulps of that sum. The backward's
 float4 path (C % 4 == 0, g and planes 16-byte aligned) and its scalar path
 (C = 42, or g 4 bytes off alignment) are both held to it, on dense g and on
 the pool-sparse g of the training path (the 2x2 max pool's backward). K2 within
-atol/rtol 1e-5, as K4. Where the image extents reach past the planes, K5 and
-K4 are held against their shared clamped taps as dense weights. The autograd Functions' gradients are the kernels'
-outputs and are held to the same tolerance against autograd through the
-plain forward.
+atol/rtol 1e-5, as K4, also where the image extents reach past the planes
+(a tap past the plane weighs 0). The autograd Functions' gradients are the
+kernels' outputs and are held to the same tolerance against autograd through
+the plain forward.
 """
 
 import numpy as np
@@ -215,30 +215,28 @@ def test_k5_and_k3_paths_match_plain_backward(cuda, name, b, n, c, bucket, hws, 
                port.roi_align_multilevel_reference_backward(g.abs(), *one))
 
 
-def _clamped_weights(lo, hi, dim, stride, crop, size):
-    """Dense sampling weights [B, N, S, size] of one axis with the kernels'
-    taps (csrc/roi_align_common.cuh): both taps at their plane-clamped cells,
-    summed there -> (weights, taps of nonzero weight clamped onto the first)."""
-    v, ok = port.level_sample_coords(lo, hi, dim, stride, crop)
-    c0 = v.floor()
-    w = torch.stack([(1.0 - (v - c0).abs()).clamp_min(0.0),
-                     (1.0 - (v - (c0 + 1.0)).abs()).clamp_min(0.0)]) * ok
-    cells = torch.stack([c0, c0 + 1.0]).long().clamp_max(size - 1)
-    dense = torch.zeros(*v.shape, size, device=v.device)
-    for t in range(2):
-        dense.scatter_add_(-1, cells[t].unsqueeze(-1), w[t].unsqueeze(-1))
-    return dense, int(((cells[1] == cells[0]) & (w[1] != 0)).sum())
+def _samples_past_the_plane(rois, levels, valid, ih, iw, planes):
+    """In-range samples of valid rois whose coordinate lies past their
+    level's plane (the taps there weigh 0)."""
+    count = 0
+    for k, (feat, stride) in enumerate(zip(planes, STRIDES)):
+        on = ((levels == k) & valid)[..., None]
+        for lo, hi, dim, size in ((1, 3, ih, feat.shape[1]), (0, 2, iw, feat.shape[2])):
+            v, ok = port.level_sample_coords(rois[..., lo], rois[..., hi], dim, stride, 14)
+            count += int((ok & on & (v > size - 1)).sum())
+    return count
 
 
 @pytest.mark.parametrize("aligned", [True, False], ids=["float4", "scalar"])
 def test_k5_adds_clamped_taps_where_k4_reads_them(cuda, aligned):
     """Image extents past the planes (images up to 160 px on the planes of a
-    128x128 bucket, so a sample's last valid cell lies past the plane's):
-    K4 reads a second tap clamped onto the plane's last cell there, and K5
-    adds it there and nowhere past the plane. Both are held against the
-    kernels' clamped taps as dense weights (the plain versions' tent over
-    the plane's cells drops that tap, so they differ here), K5 within 1e-5
-    of sum |g * w|, K4 within atol/rtol 1e-5."""
+    128x128 bucket, so a sample's last valid cell lies past the plane's): a
+    tap past the plane weighs 0 in K4 and in K5, and K5 writes nothing past
+    the plane. Both are held against the plain versions
+    (`roi_align_multilevel_reference` and its autograd backward, whose tent
+    runs over the plane's own cells): K4 within atol/rtol 1e-5, K5 within
+    1e-5 of sum |g * w|. (The name is older than the rule: the kernels
+    used to put a clamped tap's weight on the plane's last cell.)"""
     planes, (rois, levels, valid, ih, iw), g = _case(cuda, 2, 64, 32, (128, 128),
                                                      [[160, 150], [144, 160]], seed=5)
     if not aligned:
@@ -246,21 +244,14 @@ def test_k5_adds_clamped_taps_where_k4_reads_them(cuda, aligned):
     shapes = [tuple(p.shape) for p in planes]
     assert vectorizable([torch.empty(s, device=cuda) for s in shapes], g) == aligned
     args = (rois, levels, valid, ih, iw, 14, STRIDES)
-    want_crops, want, scale, clamped = 0.0, [], [], 0
-    for k, (feat, stride) in enumerate(zip(planes, STRIDES)):
-        wy, ny = _clamped_weights(rois[..., 1], rois[..., 3], ih, stride, 14, feat.shape[1])
-        wx, nx = _clamped_weights(rois[..., 0], rois[..., 2], iw, stride, 14, feat.shape[2])
-        wy = wy * ((levels == k) & valid)[..., None, None]
-        clamped += ny + nx
-        want_crops = want_crops + torch.einsum("bnih,bnjw,bhwc->bnijc", wy, wx, feat)
-        want.append(torch.einsum("bnih,bnjw,bnijc->bhwc", wy, wx, g))
-        scale.append(torch.einsum("bnih,bnjw,bnijc->bhwc", wy, wx, g.abs()))
-    assert clamped > 0
-    torch.testing.assert_close(ROI_ALIGN_KERNEL(planes, *args), want_crops, rtol=1e-5,
+    assert _samples_past_the_plane(rois, levels, valid, ih, iw, planes) > 0
+    torch.testing.assert_close(ROI_ALIGN_KERNEL(planes, *args),
+                               port.roi_align_multilevel_reference(planes, *args), rtol=1e-5,
                                atol=1e-5)
     got = ROI_ALIGN_BACKWARD_KERNEL(g, shapes, *args)
     torch.cuda.synchronize()
-    _check(got, want, scale)
+    _check(got, port.roi_align_multilevel_reference_backward(g, planes, *args),
+           port.roi_align_multilevel_reference_backward(g.abs(), planes, *args))
 
 
 def test_backward_wrapper_rejects_bad_inputs(cuda):

@@ -10,7 +10,7 @@
 // kernel `_kernel` (K2) as well; its gradient is roi_align_backward.cu.
 //
 // Sampling and tap arithmetic: roi_align_common.cuh (`sample_coord`,
-// `taps`), shared with the backward (roi_align_backward.cu). Each sample is
+// `taps`, `block_taps`), shared with the backward (roi_align_backward.cu). Each sample is
 // summed over y first and then over x, like the plain version's two matmuls.
 // The TPU kernel copies a fixed 64-cell window around each roi into VMEM
 // (aligned to (8, 128) tiles, planes padded to the window) and truncates
@@ -164,17 +164,7 @@ roi_align_ml_kernel(roi_align::Pyramid<const float> pyr, const float* __restrict
   }
   const roi_align::Level<const float> level = pyr.level[lvl];
   const float* r = rois + static_cast<size_t>(roi) * 4;  // x1, y1, x2, y2
-  const int t = threadIdx.x;
-  if (t < crop) {
-    float x;
-    roi_align::sample_coord(r[0], r[2], image_w[b], level.stride, t, crop, &x, &x_in[t]);
-    tx[t] = roi_align::taps(x, level.w);
-  } else if (t < crop + rows) {
-    float y;
-    roi_align::sample_coord(r[1], r[3], image_h[b], level.stride, row_lo + t - crop, crop, &y,
-                            &y_in[t - crop]);
-    ty[t - crop] = roi_align::taps(y, level.h);
-  }
+  roi_align::block_taps(level, r, image_h[b], image_w[b], crop, row_lo, rows, ty, y_in, tx, x_in);
   __syncthreads();
 
   const float* plane = level.data + static_cast<size_t>(b) * level.h * level.w * c;

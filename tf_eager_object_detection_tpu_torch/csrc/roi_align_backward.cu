@@ -12,9 +12,9 @@
 //
 // This is the exact VJP of the port's exact forward (the JAX einsum VJP),
 // not of the TPU kernel's 64-cell window: the sample coordinates and taps
-// come from roi_align_common.cuh, the forward's own code, and a tap index is
-// clamped exactly as the forward clamps it. A tap of weight 0 (the second
-// tap of a sample on a cell) adds nothing. The gradient planes are zeroed by
+// come from roi_align_common.cuh, the forward's own code. A tap of weight 0
+// (the second tap of a sample on a cell, or a tap past the plane) adds
+// nothing. The gradient planes are zeroed by
 // the caller and have the planes' exact shapes: no window, no padding.
 //
 // What bounds it on this card: at the stock training shape (B=1, N=256,
@@ -49,19 +49,16 @@
 // channel) adds nothing: +-0 added to a cell that starts at +0 changes no
 // bit of it. At the stock training shape's fixture in chip_smoke.py (most
 // rois small, on P2, their samples less than a cell apart) the walk issues
-// 2.1x fewer reductions than one per tap. A second column tap clamped onto
-// the plane's last column (an image whose last valid cell lies past the
-// plane) is added to that column, where the forward reads it.
+// 2.1x fewer reductions than one per tap.
 //
 // Exactness: built with -fmad=false and without fast math. Blocks run in
 // parallel, so rois (and the row groups of one roi) that share a cell add
 // in an order that changes from run to run: the result is not bitwise
-// deterministic. Against the plain version (autograd through two matmuls;
-// where the image extents fit the planes, since past them its tent over the
-// plane's cells drops a clamped tap) each cell agrees within 1e-5 of
-// sum |g * w| over the terms it adds (the plain backward applied to |g|): a
-// float sum of n terms taken in another order moves by a few ulps of that
-// sum. A deterministic roi-sorted segmented sum is later work.
+// deterministic. Against the plain version (autograd through two matmuls)
+// each cell agrees within 1e-5 of sum |g * w| over the terms it adds (the
+// plain backward applied to |g|): a float sum of n terms taken in another
+// order moves by a few ulps of that sum. A deterministic roi-sorted
+// segmented sum is later work.
 
 #include "roi_align_common.cuh"
 
@@ -129,11 +126,10 @@ __device__ __forceinline__ void add_column(T* __restrict__ plane, int plane_w, i
 // One thread's work: sample row `yt` of a roi at one unit (plane and src
 // offset to that unit). It walks the row's samples in order, keeping the
 // sums r_a, r_b of w_x * g for the current columns a and a + 1 in registers:
-// a sample's column taps are a and a + 1 (or both a, where the plane's last
-// column clamps the second; or its second tap has weight 0), and the
-// samples' columns only grow along a row, so a column's sum is complete, and
-// added to the plane, when the walk passes it. (For a roi with x2 < x1 they
-// shrink: both sums are added whenever the first column moves.)
+// a sample's column taps are a and a + 1 (its second tap may weigh 0), and
+// the samples' columns only grow along a row, so a column's sum is complete,
+// and added to the plane, when the walk passes it. (For a roi with x2 < x1
+// they shrink: both sums are added whenever the first column moves.)
 template <typename T>
 __device__ __forceinline__ void walk_row(T* __restrict__ plane, int plane_w, int units, int crop,
                                          const Taps& yt, const Taps* tx, const int* x_in,
@@ -159,13 +155,7 @@ __device__ __forceinline__ void walk_row(T* __restrict__ plane, int plane_w, int
         a = xt.i0;
       }
       ra = add_scaled(ra, xt.w0, g[u]);
-      if (xt.w1 != 0.0f) {
-        if (xt.i1 == a) {
-          ra = add_scaled(ra, xt.w1, g[u]);  // clamped onto column a
-        } else {
-          rb = add_scaled(rb, xt.w1, g[u]);
-        }
-      }
+      if (xt.w1 != 0.0f) rb = add_scaled(rb, xt.w1, g[u]);
     }
   }
   add_column(plane, plane_w, units, yt, a, ra);

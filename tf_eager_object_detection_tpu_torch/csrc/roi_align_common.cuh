@@ -9,9 +9,11 @@
 // c1 + ((c2 - c1) * i) * r, r the float32 reciprocal of S - 1 (the product
 // XLA compiles the JAX division into), counts as inside when it lies in
 // [-1e-3, b + 1e-3], and is clamped to [0, b]. A sample at y weighs its two
-// neighbouring cells along the axis by the tent max(0, 1 - |y - cell|); a
-// tap index is clamped to the plane, so a sample on the last cell never
-// reads past it (its second tap has weight 0).
+// neighbouring cells along the axis by the tent max(0, 1 - |y - cell|) over
+// the plane's own cells: a tap on a cell past the plane (where an image's
+// last valid cell b lies beyond the plane's last, b > size - 1) weighs 0, as
+// in the plain version and the Pallas kernels' zero padding. Its index is
+// clamped to the plane, so nothing is read or written past it.
 
 #pragma once
 
@@ -53,7 +55,7 @@ __device__ __forceinline__ void sample_coord(float lo, float hi, float dim, floa
 }
 
 // The two taps of a clamped sample coordinate along an axis of `size` cells:
-// cell indices (clamped to the plane) and tent weights.
+// cell indices (clamped to the plane) and tent weights (0 past the plane).
 struct Taps {
   int i0;
   int i1;
@@ -64,8 +66,8 @@ struct Taps {
 __device__ __forceinline__ Taps taps(float v, int size) {
   const int c0 = static_cast<int>(floorf(v));
   Taps t;
-  t.w0 = fmaxf(0.0f, 1.0f - fabsf(v - static_cast<float>(c0)));
-  t.w1 = fmaxf(0.0f, 1.0f - fabsf(v - static_cast<float>(c0 + 1)));
+  t.w0 = c0 < size ? fmaxf(0.0f, 1.0f - fabsf(v - static_cast<float>(c0))) : 0.0f;
+  t.w1 = c0 + 1 < size ? fmaxf(0.0f, 1.0f - fabsf(v - static_cast<float>(c0 + 1))) : 0.0f;
   t.i0 = min(c0, size - 1);
   t.i1 = min(c0 + 1, size - 1);
   return t;
@@ -75,8 +77,8 @@ __device__ __forceinline__ Taps taps(float v, int size) {
 // `rows` sample rows from row `row_lo`, for roi `r` (x1, y1, x2, y2 pixels)
 // of an image of valid extent (image_h, image_w) on `level`, into shared
 // memory: thread t < crop takes column t, the next `rows` threads the rows
-// (the block needs crop + rows threads); the caller synchronises. The same
-// arithmetic as the forward's (roi_align.cu) prologue.
+// (the block needs crop + rows threads); the caller synchronises. The
+// prologue of both the forward and the backward.
 template <typename T>
 __device__ __forceinline__ void block_taps(const Level<T>& level, const float* r, float image_h,
                                            float image_w, int crop, int row_lo, int rows,

@@ -1,10 +1,15 @@
 """What the port's two detectors share: device placement, seeded random
-weights, the freeze policy and the serving entry points.
+weights, the freeze policy, the serving entry points and the training loss
+around the RPN and RoI heads.
 
 - `predict(image, image_hw)` -> padded `Detections` for one image.
 - `im_detect(image, image_hw, scale)` / `im_detect_batch(images, image_hw,
   scales)` -> raw-head outputs with rois rescaled by 1/scale, for the eval
   writers.
+- `_detection_loss(...)`: a subclass's `loss_fn` hands it the RPN outputs,
+  its proposals and its RoI head; it draws the samplers' random numbers,
+  builds the RPN and RoI targets, and returns the four losses and the
+  sample counts under the JAX metric names.
 
 A subclass builds its modules, calls `_place(seed)`, and defines
 `_detect(images, image_hw) -> (rois [B, R, 4], roi_valid [B, R],
@@ -29,7 +34,13 @@ import torch
 from torch import nn
 
 from tf_eager_object_detection_tpu_torch.models.freeze import freeze_
+from tf_eager_object_detection_tpu_torch.ops.losses import cls_loss, smooth_l1_loss
 from tf_eager_object_detection_tpu_torch.ops.prediction import Detections, post_ops_prediction
+from tf_eager_object_detection_tpu_torch.ops.sampling import (
+    TrainDraws,
+    anchor_target,
+    proposal_target,
+)
 
 __all__ = ["ServingDetector", "resolve_device", "RESNET_DEPTHS"]
 
@@ -76,7 +87,9 @@ class ServingDetector(nn.Module):
     def _place(self, seed: int) -> None:
         """Seeded random init (normal draws from a CPU torch.Generator), the
         freeze policy, then move to `self.device` and switch to eval (no
-        layer of the port behaves differently in training)."""
+        layer of the port behaves differently in training). `generator`, on
+        the device and seeded alike, draws the samplers' random numbers when
+        `loss_fn` is given none."""
         gen = torch.Generator().manual_seed(seed)
         for name, mod in self.named_modules():
             if isinstance(mod, (nn.Conv2d, nn.Linear)):
@@ -85,6 +98,7 @@ class ServingDetector(nn.Module):
                 mod.bias.zero_()
         freeze_(self)
         self.to(self.device).eval()
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -94,8 +108,81 @@ class ServingDetector(nn.Module):
         image_hw = torch.as_tensor(image_hw, device=self.device).long()
         return images, image_hw
 
+    def _train_inputs(self, images, image_hw, gt_boxes, gt_mask, gt_labels):
+        images, image_hw = self._as_inputs(images, image_hw)
+        return (images, image_hw,
+                torch.as_tensor(gt_boxes, dtype=torch.float32, device=self.device),
+                torch.as_tensor(gt_mask, device=self.device).bool(),
+                torch.as_tensor(gt_labels, device=self.device).long())
+
     def _detect(self, images: torch.Tensor, image_hw: torch.Tensor):
         raise NotImplementedError
+
+    def _detection_loss(self, image_hw, gt_boxes, gt_mask, gt_labels, draws, anchors,
+                        rpn_logits, rpn_deltas, propose, roi_outputs):
+        """The training losses of a batch from its RPN outputs -> (total, metrics).
+
+        image_hw [B, 2] and the gt tensors as `_train_inputs` gives them;
+        `draws` as `loss_fn` takes it; anchors [A, 4]; rpn_logits [B, A, 2]
+        and rpn_deltas [B, A, 4] in anchor order; `propose()` -> (rois
+        [B, R, 4], roi_valid [B, R]), the proposals at the training sizes;
+        `roi_outputs(rois [B, S, 4])` -> (roi_scores [B * S, C], roi_deltas
+        [B * S, 4C]) for every sampled slot (as in JAX, none is masked).
+        Proposals and targets carry no gradient. Metrics (0-dim tensors,
+        read nothing back): rpn_cls_loss, rpn_reg_loss, roi_cls_loss,
+        roi_reg_loss, total_loss, and the per-image means of num_proposals,
+        num_rpn_fg, num_rpn_bg, num_roi_fg.
+        """
+        cfg = self.cfg
+        b = image_hw.shape[0]
+        s = cfg["roi_total_sample_number"]
+        if not isinstance(draws, TrainDraws):
+            draws = TrainDraws.sample(
+                self.generator if draws is None else draws, b, anchors.shape[0],
+                cfg["rpn_proposal_train_after_nms_sample_number"], s,
+            )
+        with torch.no_grad():
+            rois, roi_valid = propose()
+            at = anchor_target(
+                anchors, gt_boxes, gt_mask, image_hw[:, 0], image_hw[:, 1],
+                draws.anchor_fg, draws.anchor_bg,
+                pos_iou_threshold=cfg["rpn_pos_iou_threshold"],
+                neg_iou_threshold=cfg["rpn_neg_iou_threshold"],
+                total_num_samples=cfg["rpn_total_sample_number"],
+                max_pos_samples=cfg["rpn_pos_sample_max_number"],
+                target_means=tuple(cfg["rpn_proposal_means"]),
+                target_stds=tuple(cfg["rpn_proposal_stds"]),
+            )
+            pt = proposal_target(
+                rois, roi_valid, gt_boxes, gt_mask, gt_labels,
+                draws.roi_fg, draws.roi_bg, draws.roi_bg_gumbel,
+                num_classes=self.num_classes,
+                pos_iou_threshold=cfg["roi_pos_iou_threshold"],
+                neg_iou_threshold=cfg["roi_neg_iou_threshold"],
+                total_num_samples=s,
+                max_pos_samples=cfg["roi_pos_sample_max_number"],
+                target_means=tuple(cfg["roi_proposal_means"]),
+                target_stds=tuple(cfg["roi_proposal_stds"]),
+                strict_class_column=bool(cfg.get("strict_reference_parity", False)),
+            )
+        rpn_cls = cls_loss(rpn_logits, at.labels, at.labels >= 0).mean()
+        rpn_reg = smooth_l1_loss(rpn_deltas, at.bbox_targets, at.in_weights, at.out_weights,
+                                 sigma=cfg["rpn_sigma"], dim=(1, 2))
+        roi_scores, roi_deltas = roi_outputs(pt.rois)
+        roi_cls = cls_loss(roi_scores, pt.labels.reshape(-1))
+        roi_reg = smooth_l1_loss(roi_deltas, pt.bbox_targets.reshape(b * s, -1),
+                                 pt.in_weights.reshape(b * s, -1),
+                                 pt.out_weights.reshape(b * s, -1),
+                                 sigma=cfg["roi_sigma"], dim=(1,))
+        metrics = {"rpn_cls_loss": rpn_cls, "rpn_reg_loss": rpn_reg,
+                   "roi_cls_loss": roi_cls, "roi_reg_loss": roi_reg}
+        total = sum(metrics.values())
+        metrics["total_loss"] = total
+        counts = {"num_proposals": roi_valid, "num_rpn_fg": at.labels == 1,
+                  "num_rpn_bg": at.labels == 0, "num_roi_fg": pt.labels > 0}
+        for k, v in counts.items():
+            metrics[k] = v.float().sum(dim=-1).mean()
+        return total, metrics
 
     @torch.inference_mode()
     def predict(self, image, image_hw) -> Detections:

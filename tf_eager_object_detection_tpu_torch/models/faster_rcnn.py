@@ -1,12 +1,20 @@
-"""Faster R-CNN detector, serving path (port of `tf_eager_object_detection_tpu/models/faster_rcnn.py`).
+"""Faster R-CNN detector, serving and training
+(port of `tf_eager_object_detection_tpu/models/faster_rcnn.py`).
 
-One `nn.Module` holds the backbone, the RPN head and the RoI head; the
-detection logic runs on padded fixed-shape tensors with the batch dimension
-explicit, so the RPN NMS of a whole batch is one call. Image tensors are
-padded to a bucket shape; `image_hw` carries each image's valid extent and
-anchors over the padding are masked out (score = -inf). The serving entry
-points (`predict`, `im_detect`, `im_detect_batch`) are those of
-`models/detector.py`.
+One `nn.Module` holds the backbone, the RPN head and the conv5 RoI head;
+the detection logic runs on padded fixed-shape tensors with the batch
+dimension explicit, so the RPN NMS of a whole batch is one call. Image
+tensors are padded to a bucket shape; `image_hw` carries each image's valid
+extent and anchors over the padding are masked out (score = -inf). The
+serving entry points (`predict`, `im_detect`, `im_detect_batch`) are those
+of `models/detector.py`.
+
+`loss_fn` is the training loss, the JAX `loss_fn` with the batch explicit
+instead of a per-image vmap: the proposals at the training sizes (one RPN
+NMS per batch), the RPN and RoI targets and the four losses of
+`models/detector.py::_detection_loss`, and the RoI crop
+`roi_crop_faster_rcnn` (two matmuls) with autograd
+through it into the backbone.
 """
 
 from __future__ import annotations
@@ -25,7 +33,11 @@ from tf_eager_object_detection_tpu_torch.models.backbones.resnet import (
     ResNetRoiHead,
 )
 from tf_eager_object_detection_tpu_torch.models.detector import RESNET_DEPTHS, ServingDetector
-from tf_eager_object_detection_tpu_torch.models.heads import RpnHead, reshuffle_frcnn_scores
+from tf_eager_object_detection_tpu_torch.models.heads import (
+    RpnHead,
+    frcnn_score_logits,
+    reshuffle_frcnn_scores,
+)
 from tf_eager_object_detection_tpu_torch.ops.region_proposal import region_proposal
 from tf_eager_object_detection_tpu_torch.ops.roi_align import roi_crop_faster_rcnn
 
@@ -59,12 +71,15 @@ class FasterRCNNDetector(ServingDetector):
 
     # --------------------------------------------------------------- anchors
     def anchors_for_grid(self, grid_h: int, grid_w: int) -> torch.Tensor:
+        """[gh * gw * A, 4] anchors, cached as a normal tensor even when first
+        asked for under serving's `torch.inference_mode`."""
         key = (grid_h, grid_w)
         if key not in self._anchor_cache:
-            self._anchor_cache[key] = torch.as_tensor(
-                shift_anchor_base(self.anchor_base, self.stride, grid_h, grid_w),
-                device=self.device,
-            )
+            with torch.inference_mode(False):
+                self._anchor_cache[key] = torch.as_tensor(
+                    shift_anchor_base(self.anchor_base, self.stride, grid_h, grid_w),
+                    device=self.device,
+                )
         return self._anchor_cache[key]
 
     # ----------------------------------------------------------- shared path
@@ -73,9 +88,11 @@ class FasterRCNNDetector(ServingDetector):
         score_map, bbox_map = self.rpn_head(feats)
         return feats, score_map.float(), bbox_map.float()
 
-    def _proposals(self, score_map, bbox_map, image_hw):
-        """Batched test-time proposals. score/bbox maps: [B, h, w, *]."""
+    def _proposals(self, score_map, bbox_map, image_hw, training: bool = False):
+        """Batched proposals at the test or the training sizes. score/bbox
+        maps: [B, h, w, *]."""
         cfg = self.cfg
+        phase = "train" if training else "test"
         b, gh, gw, _ = score_map.shape
         scores = reshuffle_frcnn_scores(score_map, self.num_anchors)
         deltas = bbox_map.reshape(b, -1, 4)
@@ -91,24 +108,51 @@ class FasterRCNNDetector(ServingDetector):
             avalid,
             h,
             w,
-            num_post_nms=cfg["rpn_proposal_test_after_nms_sample_number"],
+            num_post_nms=cfg[f"rpn_proposal_{phase}_after_nms_sample_number"],
             nms_iou_threshold=cfg["rpn_proposal_nms_iou_threshold"],
-            num_pre_nms=min(cfg["rpn_proposal_test_pre_nms_sample_number"], deltas.shape[1]),
+            num_pre_nms=min(cfg[f"rpn_proposal_{phase}_pre_nms_sample_number"], deltas.shape[1]),
             target_means=cfg["rpn_proposal_means"],
             target_stds=cfg["rpn_proposal_stds"],
             clip_deltas=self.clip_deltas,
         )
 
+    def _roi_outputs(self, feats, rois):
+        """RoI crops of `rois` [B, R, 4] through the conv5 head ->
+        (roi_scores [B * R, C], roi_deltas [B * R, 4C])."""
+        roi_feats = roi_crop_faster_rcnn(
+            feats, rois, self.stride, self.cfg["roi_pooling_size"], self.roi_max_pooling
+        )
+        return self.roi_head(roi_feats.reshape(-1, *roi_feats.shape[2:]))
+
     def _roi_forward(self, feats, score_map, bbox_map, image_hw):
         """Batched eval path up to the raw RoI head outputs."""
         rois, roi_valid = self._proposals(score_map, bbox_map, image_hw)
         b, r, _ = rois.shape
-        roi_feats = roi_crop_faster_rcnn(
-            feats, rois, self.stride, self.cfg["roi_pooling_size"], self.roi_max_pooling
-        )
-        roi_scores, roi_deltas = self.roi_head(roi_feats.reshape(b * r, *roi_feats.shape[2:]))
+        roi_scores, roi_deltas = self._roi_outputs(feats, rois)
         roi_softmax = torch.softmax(roi_scores, dim=-1).reshape(b, r, self.num_classes)
         return rois, roi_valid, roi_softmax, roi_deltas.reshape(b, r, self.num_classes, 4)
 
     def _detect(self, images, image_hw):
         return self._roi_forward(*self._backbone_rpn(images), image_hw)
+
+    # ------------------------------------------------------------------ loss
+    def loss_fn(self, images, image_hw, gt_boxes, gt_mask, gt_labels, draws=None):
+        """One training batch -> (total loss, metrics).
+
+        images [B, Hp, Wp, 3]; image_hw [B, 2]; gt_boxes [B, G, 4] xyxy
+        pixels with gt_mask [B, G] and gt_labels [B, G] (class ids >= 1);
+        numpy or tensors. `draws` is the samplers' `TrainDraws`, or a
+        `torch.Generator` on the detector's device to draw them from, or None
+        for the detector's own `generator`. Metrics: those of
+        `ServingDetector._detection_loss`.
+        """
+        images, image_hw, *gt = self._train_inputs(images, image_hw, gt_boxes, gt_mask,
+                                                   gt_labels)
+        feats, score_map, bbox_map = self._backbone_rpn(images)
+        b, gh, gw, _ = score_map.shape
+        return self._detection_loss(
+            image_hw, *gt, draws, self.anchors_for_grid(gh, gw),
+            frcnn_score_logits(score_map, self.num_anchors), bbox_map.reshape(b, -1, 4),
+            lambda: self._proposals(score_map, bbox_map, image_hw, training=True),
+            lambda rois: self._roi_outputs(feats, rois),
+        )

@@ -41,17 +41,11 @@ from tf_eager_object_detection_tpu_torch.models.backbones.resnet import ResNetBa
 from tf_eager_object_detection_tpu_torch.models.detector import RESNET_DEPTHS, ServingDetector
 from tf_eager_object_detection_tpu_torch.models.heads import RpnHead
 from tf_eager_object_detection_tpu_torch.models.layers import SameConv2d
-from tf_eager_object_detection_tpu_torch.ops.losses import cls_loss, smooth_l1_loss
 from tf_eager_object_detection_tpu_torch.ops.region_proposal import region_proposal
 from tf_eager_object_detection_tpu_torch.ops.roi_align import (
     max_pool_2x2_same,
     roi_align_multilevel,
     roi_align_single_level,
-)
-from tf_eager_object_detection_tpu_torch.ops.sampling import (
-    TrainDraws,
-    anchor_target,
-    proposal_target,
 )
 
 __all__ = ["FPNDetector", "ResnetFpnNeck", "FpnRoiHead", "resize_bilinear_tf1"]
@@ -166,8 +160,6 @@ class FPNDetector(ServingDetector):
         self.roi_head = FpnRoiHead(self.num_classes, pool * pool * dims)
         self._anchor_cache: dict = {}
         self._place(seed)
-        # the samplers' draws when loss_fn is given none
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     def _init_std(self, name: str, fan_in: int) -> float:
         if name.startswith("neck."):
@@ -283,69 +275,21 @@ class FPNDetector(ServingDetector):
         pixels with gt_mask [B, G] and gt_labels [B, G] (class ids >= 1);
         numpy or tensors. `draws` is the samplers' `TrainDraws`, or a
         `torch.Generator` on the detector's device to draw them from, or None
-        for the detector's own `generator`. Metrics (0-dim tensors, read
-        nothing back): rpn_cls_loss, rpn_reg_loss, roi_cls_loss,
-        roi_reg_loss, total_loss, and the per-image means of num_proposals,
-        num_rpn_fg, num_rpn_bg, num_roi_fg.
+        for the detector's own `generator`. Metrics: those of
+        `ServingDetector._detection_loss`.
         """
-        cfg = self.cfg
-        images, image_hw = self._as_inputs(images, image_hw)
-        gt_boxes = torch.as_tensor(gt_boxes, dtype=torch.float32, device=self.device)
-        gt_mask = torch.as_tensor(gt_mask, device=self.device).bool()
-        gt_labels = torch.as_tensor(gt_labels, device=self.device).long()
-        b = images.shape[0]
-        s = cfg["roi_total_sample_number"]
-        h, w = image_hw[:, 0], image_hw[:, 1]
-
+        images, image_hw, *gt = self._train_inputs(images, image_hw, gt_boxes, gt_mask,
+                                                   gt_labels)
         p_list, score_list, bbox_list = self._backbone_neck_rpn(images)
         scores2, deltas, grids = self._flatten_levels(score_list, bbox_list)
-        anchors = self.anchors_for_grids(grids)
-        if not isinstance(draws, TrainDraws):
-            draws = TrainDraws.sample(
-                self.generator if draws is None else draws, b, anchors.shape[0],
-                cfg["rpn_proposal_train_after_nms_sample_number"], s,
-            )
-        with torch.no_grad():  # proposals and targets carry no gradient
-            rois, roi_valid = self._proposals(scores2, deltas, grids, image_hw, training=True)
-            at = anchor_target(
-                anchors, gt_boxes, gt_mask, h, w, draws.anchor_fg, draws.anchor_bg,
-                pos_iou_threshold=cfg["rpn_pos_iou_threshold"],
-                neg_iou_threshold=cfg["rpn_neg_iou_threshold"],
-                total_num_samples=cfg["rpn_total_sample_number"],
-                max_pos_samples=cfg["rpn_pos_sample_max_number"],
-                target_means=tuple(cfg["rpn_proposal_means"]),
-                target_stds=tuple(cfg["rpn_proposal_stds"]),
-            )
-            pt = proposal_target(
-                rois, roi_valid, gt_boxes, gt_mask, gt_labels,
-                draws.roi_fg, draws.roi_bg, draws.roi_bg_gumbel,
-                num_classes=self.num_classes,
-                pos_iou_threshold=cfg["roi_pos_iou_threshold"],
-                neg_iou_threshold=cfg["roi_neg_iou_threshold"],
-                total_num_samples=s,
-                max_pos_samples=cfg["roi_pos_sample_max_number"],
-                target_means=tuple(cfg["roi_proposal_means"]),
-                target_stds=tuple(cfg["roi_proposal_stds"]),
-                strict_class_column=bool(cfg.get("strict_reference_parity", False)),
-            )
-        rpn_cls = cls_loss(scores2, at.labels, at.labels >= 0).mean()
-        rpn_reg = smooth_l1_loss(deltas, at.bbox_targets, at.in_weights, at.out_weights,
-                                 sigma=cfg["rpn_sigma"], dim=(1, 2))
 
-        # every sampled slot is cropped, as in JAX (no validity mask)
-        roi_feats = self._roi_features(p_list, pt.rois, torch.ones_like(pt.valid), image_hw)
-        roi_scores, roi_deltas = self.roi_head(roi_feats.reshape(b * s, *roi_feats.shape[2:]))
-        roi_cls = cls_loss(roi_scores, pt.labels.reshape(-1))
-        roi_reg = smooth_l1_loss(roi_deltas, pt.bbox_targets.reshape(b * s, -1),
-                                 pt.in_weights.reshape(b * s, -1),
-                                 pt.out_weights.reshape(b * s, -1),
-                                 sigma=cfg["roi_sigma"], dim=(1,))
-        metrics = {"rpn_cls_loss": rpn_cls, "rpn_reg_loss": rpn_reg,
-                   "roi_cls_loss": roi_cls, "roi_reg_loss": roi_reg}
-        total = sum(metrics.values())
-        metrics["total_loss"] = total
-        counts = {"num_proposals": roi_valid, "num_rpn_fg": at.labels == 1,
-                  "num_rpn_bg": at.labels == 0, "num_roi_fg": pt.labels > 0}
-        for k, v in counts.items():
-            metrics[k] = v.float().sum(dim=-1).mean()
-        return total, metrics
+        def roi_outputs(rois):
+            every = torch.ones(rois.shape[:2], dtype=torch.bool, device=rois.device)
+            feats = self._roi_features(p_list, rois, every, image_hw)
+            return self.roi_head(feats.reshape(-1, *feats.shape[2:]))
+
+        return self._detection_loss(
+            image_hw, *gt, draws, self.anchors_for_grids(grids), scores2, deltas,
+            lambda: self._proposals(scores2, deltas, grids, image_hw, training=True),
+            roi_outputs,
+        )

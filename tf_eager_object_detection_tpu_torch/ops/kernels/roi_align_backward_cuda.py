@@ -10,9 +10,8 @@ Arguments are checked and passed as for the forward (`roi_align_cuda.py`),
 with the output gradient in place of the output: the kernel adds 16-byte
 float4 units where `vectorizable(gradient planes, grad)` holds (C % 4 == 0,
 every pointer 16-byte aligned) and single channels otherwise. The gradient
-is that of the CUDA forward: where an image's last valid cell lies past a
-plane, a tap clamped onto the plane's last cell adds there, as the forward
-reads it. Each wrapper launches on PyTorch's current stream, builds its
+is that of the CUDA forward, where a tap past the plane weighs 0 and adds
+nothing. Each wrapper launches on PyTorch's current stream, builds its
 library on first use and counts its own launches in `.launches`; CUDA
 tensors only.
 """

@@ -8,9 +8,9 @@
 The backward wrappers (K5, K3) are in `roi_align_backward_cuda.py`. Each
 launches on PyTorch's current stream, builds its library on first use
 and counts its own launches in `.launches`. They take CUDA tensors only; the
-plain PyTorch versions live beside their callers in `ops/roi_align.py`. The
-image extents must fit the planes (a sample is clamped to the image's last
-valid cell, which must lie on the plane). The forward moves 16-byte float4
+plain PyTorch versions live beside their callers in `ops/roi_align.py`.
+Where an image's last valid cell lies past a plane, a tap on a cell past
+the plane weighs 0, as in the plain version. The forward moves 16-byte float4
 units where `vectorizable` holds and single channels otherwise: a plane view
 that is contiguous but not 16-byte aligned is taken, on the scalar path.
 """
