@@ -80,7 +80,24 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    once per image (`eval_post_process`, the 20 classes in one call), that
    the files parse back, a finite mAP in [0, 1], and AP exactly 1.0 for
    every class present when the ground truth is written as detections.
-9. Prints a JSON line with the five kernels' records, then as its last line
+9. `frcnn_trainer`, then `fpn_trainer`: the trainer path at full width
+   (stock Pascal config at the rehearsal's learning rate 2.5e-4, B=1). The
+   port's `voc_rehearsal.generate` writes 16 trainval and 16 test 600x800
+   procedural JPEGs to a temporary directory and `create_pascal_tf_records`
+   their TFRecords; `Trainer.train` takes 12 steps over
+   `dataset_factory("pascal", "train", ...)` through `prefetch` and saves a
+   checkpoint (launches: the steps' and the summary step's `predict`). A
+   fresh `Trainer` on the same directory must restore bit-equal parameters,
+   momentum traces and step count, and one more step of both on one batch
+   and one set of draws must give equal losses. `eval_pascal.main` from the
+   checkpoint over the test JPEGs (`pascal_eval_iterator` ->
+   `get_prediction_files` -> `voc_eval`) must write 20 result files and 20
+   APs in [0, 1] (K1 once a batch and once an image, FPN K4 once a batch).
+   Prints the median step wall time with the input pipeline beside the
+   bare step's of phase 7, and a profile of 4 trainer steps: wall, device
+   busy, idle share, the host's wait for the next batch and the kernels
+   launched a step.
+10. Prints a JSON line with the five kernels' records, then as its last line
    `{"ok": true, "device": {...}}`. Any failure raises: exit code != 0.
 """
 
@@ -88,6 +105,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import os
 import re
 import subprocess
 import sys
@@ -101,11 +119,13 @@ import torch
 import torch.nn.functional as F
 
 from tf_eager_object_detection_tpu_torch.config.config_factory import config_factory
+from tf_eager_object_detection_tpu_torch.data.dataset_factory import dataset_factory
 from tf_eager_object_detection_tpu_torch.data.label_map import PASCAL_CLASSES
 from tf_eager_object_detection_tpu_torch.data.preprocessing import (
     preprocess_eval_image,
     preprocess_train_image,
 )
+from tf_eager_object_detection_tpu_torch.data.voc import create_pascal_tf_records
 from tf_eager_object_detection_tpu_torch.evaluation.batched_inference import batched_im_detect
 from tf_eager_object_detection_tpu_torch.evaluation.pascal_eval_files import (
     get_prediction_files,
@@ -130,8 +150,11 @@ from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_cuda import (
 )
 from tf_eager_object_detection_tpu_torch.ops.prediction import post_ops_prediction
 from tf_eager_object_detection_tpu_torch.ops.sampling import TrainDraws
+from tf_eager_object_detection_tpu_torch.scripts import eval_pascal
+from tf_eager_object_detection_tpu_torch.scripts.voc_rehearsal import generate
 from tf_eager_object_detection_tpu_torch.training.optimizer import make_optimizer
 from tf_eager_object_detection_tpu_torch.training.train_step import make_train_step
+from tf_eager_object_detection_tpu_torch.training.trainer import Trainer, prefetch
 
 BATCH = 4
 # VOC-like raw sizes (h, w), landscape and portrait interleaved
@@ -175,6 +198,9 @@ NMS_OPS_PER_IOU = 15  # float ops of one IoU test in csrc/nms.cu::overlaps
 ROI_OPS_PER_SAMPLE = 9  # 6 multiplies and 3 adds per sample and channel
 BWD_OPS_PER_TAP = 2  # a multiply and an add per nonzero tap and channel
 TRAIN_ROIS = 256  # roi_total_sample_number of the stock config
+# the bare B=1 training step's median recorded in PERF.md before the trainer
+# existed (H100 80GB HBM3, 700 W), printed beside the trainer's
+RECORDED_BARE_STEP_MS = {"fpn": 57.96, "faster_rcnn": 51.00}
 # the kernels of the port: launch counter and the TPU kernel it replaces
 KERNELS = {
     "nms_alive_sorted": (NMS_KERNEL, "tf_eager_object_detection_tpu/ops/pallas/nms_pallas.py:28"),
@@ -1188,7 +1214,8 @@ def train_batch(items, cfg, rng):
 
 def train_path(name, step, batches, gen, cfg, per_step, card):
     """Steps over `batches` with the launch counts set to 0 before and read
-    after; checks losses, sample counts and launches. Returns the counts."""
+    after; checks losses, sample counts and launches. Returns the counts and
+    the median step time after the first (ms)."""
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -1222,7 +1249,7 @@ def train_path(name, step, batches, gen, cfg, per_step, card):
           f"{cfg['rpn_total_sample_number']}), roi fg {last['num_roi_fg']:.0f} (of "
           f"{cfg['roi_total_sample_number']} sampled), proposals {last['num_proposals']:.0f}; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  ({card})")
-    return launches
+    return launches, med
 
 
 def train_stages(det, opt, batch, gen, card):
@@ -1270,8 +1297,8 @@ def calibrate_frozen_bn(det, forward):
 def drive_training(model_type, card):
     """Training at full width, stock config, seeded random weights: 8 steps
     at B=1 (landscape and portrait interleaved), 3 at B=4 (landscape); FPN
-    also 2 at B=1 with `tpu_roi_align_fused_levels` False. Returns {path:
-    launch counts}."""
+    also 2 at B=1 with `tpu_roi_align_fused_levels` False. Returns ({path:
+    launch counts}, the B=1 median step ms)."""
     cfg = dict(config_factory("pascal", model_type))
     check_training_against_cpu(model_type, cfg, card)
     det = model_factory(model_type, "resnet50", cfg, device="cuda", seed=0)
@@ -1291,10 +1318,10 @@ def drive_training(model_type, card):
     step(b1[0], gen)  # warm-up: cuDNN algorithm choice, allocator
     step(b4[0], gen)
     name = PATH_NAME[model_type]
-    paths = {f"{name}_train_b1": train_path(f"{name}_train_b1", step, b1, gen, cfg,
-                                            PER_STEP[model_type], card),
-             f"{name}_train_b4": train_path(f"{name}_train_b4", step, b4, gen, cfg,
-                                            PER_STEP[model_type], card)}
+    paths, b1_ms = {}, None
+    for path, batches in ((f"{name}_train_b1", b1), (f"{name}_train_b4", b4)):
+        paths[path], ms = train_path(path, step, batches, gen, cfg, PER_STEP[model_type], card)
+        b1_ms = ms if b1_ms is None else b1_ms
     for batch in (b1[0], b4[0]):
         train_stages(det, opt, batch, gen, card)
     device_profile(lambda: step(b1[0], gen), card)
@@ -1302,11 +1329,11 @@ def drive_training(model_type, card):
         det.cfg["tpu_roi_align_fused_levels"] = False
         step(b1[1], gen)  # warm-up of the per-level path
         paths["fpn_train_per_level"] = train_path("fpn_train_per_level", step, b1[:2], gen, cfg,
-                                                  PER_STEP["fpn_per_level"], card)
+                                                  PER_STEP["fpn_per_level"], card)[0]
         device_profile(lambda: step(b1[0], gen), card)
     del det, opt, step
     torch.cuda.empty_cache()
-    return paths
+    return paths, b1_ms
 
 
 # --------------------------------------------------------------- VOC eval
@@ -1429,6 +1456,191 @@ def drive_voc_eval(requests, card):
     return {"frcnn_voc_eval": launches}
 
 
+# ------------------------------------------------------------------ trainer
+TRAINER_TRAIN, TRAINER_TEST = 16, 16  # the rehearsal tree's splits (seed 0 covers 20 classes)
+TRAINER_STEPS = 12
+TRAINER_LR = 2.5e-4  # the rehearsal's learning rate: the stock 1e-3 diverges from random weights
+TRAINER_EVAL_BATCH = 8
+PREDICT_LAUNCHES = {  # one `predict` (the summary step's overlay): RPN NMS, class NMS, K4
+    "fpn": {"nms_alive_sorted": 2, "roi_align_multilevel": 1},
+    "faster_rcnn": {"nms_alive_sorted": 2},
+}
+
+
+def write_rehearsal_tree(root: Path):
+    """The procedural rehearsal tree (600x800 JPEGs, seed 0) and its
+    trainval TFRecords -> (VOC2007 path, TFRecord paths)."""
+    voc = root / "VOCdevkit" / "VOC2007"
+    t = time.perf_counter()
+    generate(str(voc), TRAINER_TRAIN, TRAINER_TEST, seed=0)
+    records = create_pascal_tf_records(str(root / "VOCdevkit"), "2007", "trainval",
+                                       str(root / "tfrecords"), num_shards=2)
+    print(f"rehearsal tree: {TRAINER_TRAIN} trainval + {TRAINER_TEST} test images at "
+          f"600x800 and {len(records)} TFRecord shards in {time.perf_counter() - t:.1f} s")
+    return voc, records
+
+
+def trainer_config(model_type):
+    cfg = dict(config_factory("pascal", model_type))
+    scale = TRAINER_LR / cfg["learning_rate_multi_lrs"][0]
+    cfg["learning_rate_multi_lrs"] = [lr * scale for lr in cfg["learning_rate_multi_lrs"]]
+    return cfg
+
+
+def trainer_profile(trainer, batches, steps, card):
+    """`steps` trainer iterations (pipeline -> copy -> step) under
+    torch.profiler, with no synchronise of its own: per step the wall time,
+    the device busy time, the host's wait for the next batch and the kernels
+    launched, so the idle share splits into data, launches and the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    waited = []
+
+    def timed_batches():
+        while True:
+            t = time.perf_counter()
+            item = next(batches)
+            waited.append(time.perf_counter() - t)
+            yield item
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.train_one_epoch(timed_batches(), steps=steps)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / steps
+    events = prof.key_averages()
+    device = [e for e in events
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in device) / 1e3 / steps
+    copies = sum(e.self_device_time_total for e in device if "Memcpy" in e.key) / 1e3 / steps
+    kernels = sum(e.count for e in device if "Memcpy" not in e.key and "Memset" not in e.key)
+    launch = [e for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                             "cudaLaunchKernelExC", "cuLaunchKernelEx")]
+    launch_ms = sum(e.self_cpu_time_total for e in launch) / 1e3 / steps
+    wait = sum(waited) * 1e3 / steps
+    if busy == 0:
+        print(f"trainer profile: no device time recorded; idle share not measured  ({card})")
+        return None
+    print(f"trainer profile, {steps} steps: per step wall {wall:.2f} ms, device busy {busy:.2f} "
+          f"ms (host-to-device copies {copies:.3f}), idle share {1 - busy / wall:.3f}; host wait "
+          f"for the next batch {wait:.2f} ms, {kernels / steps:.0f} kernels launched "
+          f"({launch_ms:.2f} ms of host launch calls)  ({card})")
+    return 1 - busy / wall
+
+
+def drive_trainer(model_type, voc, records, bare_ms, card):
+    """The trainer path at full width (stock Pascal config, the rehearsal's
+    learning rate, B=1): `dataset_factory` batches from JPEG TFRecords ->
+    `Trainer.train` (prefetch; a checkpoint at the last step) -> a fresh
+    `Trainer` on the same directory restores bit-equal parameters, traces
+    and step -> one more step of each on one batch and one set of draws
+    gives equal losses -> `eval_pascal` from the checkpoint over the test
+    JPEGs writes 20 result files and 20 APs in [0, 1]. Returns {path:
+    launch counts}."""
+    cfg = trainer_config(model_type)
+    name = PATH_NAME[model_type]
+    logs = str(voc.parent.parent / f"logs_{model_type}")
+    data_cfg = {"model_config": cfg, "tf_records_list": records, "batch_size": 1, "seed": 0}
+    det = model_factory(model_type, "resnet50", cfg, device="cuda")
+    trainer = Trainer(det, logs, logging_every_n_steps=TRAINER_STEPS // 2,
+                      summary_every_n_steps=TRAINER_STEPS, saving_every_n_steps=TRAINER_STEPS,
+                      seed=0)
+    plain_step = trainer.step_fn
+    ends, metrics = [], []
+
+    def timed_step(batch, draws):
+        out = plain_step(batch, draws)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        metrics.append({k: float(v) for k, v in out.items()})
+        return out
+
+    trainer.step_fn = timed_step
+    reset_launches()
+    trainer.train(dataset_factory("pascal", "train", data_cfg), 1, TRAINER_STEPS)
+    launches = launch_counts()
+    expected = {k: PER_STEP[model_type].get(k, 0) * TRAINER_STEPS
+                + PREDICT_LAUNCHES[model_type].get(k, 0) for k in KERNELS}
+    print(f"{name}_trainer: kernel launches {launches} (expected {expected}: {TRAINER_STEPS} "
+          f"steps and the summary step's predict)")
+    require(launches == expected, f"{name}_trainer launches {launches} != expected {expected}")
+    require(len(metrics) == TRAINER_STEPS and trainer.step == TRAINER_STEPS,
+            f"{name}_trainer: {len(metrics)} steps, count {trainer.step}")
+    for i, m in enumerate(metrics):
+        require(all(np.isfinite(v) for v in m.values()), f"{name}_trainer step {i + 1}: {m}")
+        require(m["num_rpn_fg"] + m["num_rpn_bg"] == cfg["rpn_total_sample_number"]
+                and m["num_rpn_fg"] > 0, f"{name}_trainer step {i + 1}: sample counts {m}")
+    ckpts = sorted(os.listdir(logs))
+    require(f"ckpt_{TRAINER_STEPS:08d}.pt" in ckpts, f"{name}_trainer checkpoints {ckpts}")
+    med = float(np.median(np.diff(ends))) * 1e3
+    print(f"{name}_trainer: {TRAINER_STEPS} steps at B=1 from JPEG TFRecords, step wall time "
+          f"(pipeline, copy, step; one synchronise a step) median {med:.2f} ms = "
+          f"{1e3 / med:.3f} images/s, against {bare_ms:.2f} ms for the bare step of this run's "
+          f"{name}_train_b1 (recorded earlier: {RECORDED_BARE_STEP_MS[model_type]} ms); "
+          "losses step 1 "
+          f"{metrics[0]['total_loss']:.4f}, step {TRAINER_STEPS} "
+          f"{metrics[-1]['total_loss']:.4f}  ({card})")
+
+    # a fresh trainer restores the checkpoint bit for bit
+    det2 = model_factory(model_type, "resnet50", cfg, device="cuda", seed=1)
+    restored = Trainer(det2, logs, seed=0)
+    require(restored.step == TRAINER_STEPS, f"restored step {restored.step}")
+    state, state2 = det.state_dict(), det2.state_dict()
+    require(all(torch.equal(state[k], state2[k]) for k in state), "restored params differ")
+    require(all(torch.equal(t, restored.optimizer.trace[k])
+                for k, t in trainer.optimizer.trace.items()), "restored traces differ")
+    # one more step of each on the same batch and draws: equal losses
+    batches = dataset_factory("pascal", "train", dict(data_cfg, seed=1))
+    batch = next(batches)
+    batches.close()
+    cont = [{k: float(v) for k, v in t.step_fn(t._to_device(batch),
+                                                torch.Generator(det.device).manual_seed(7))
+             .items()} for t in (trainer, restored)]
+    require(cont[0] == cont[1], f"continued step: {cont[0]} vs restored {cont[1]}")
+    print(f"{name}_trainer: a fresh Trainer restored step {TRAINER_STEPS} with bit-equal "
+          f"parameters ({len(state)} tensors), traces ({len(trainer.optimizer.trace)}) and "
+          f"count; the next step of both on one batch and one set of draws gives equal losses "
+          f"(total {cont[0]['total_loss']:.6f})")
+
+    # the eval command line from the checkpoint over the test JPEGs
+    result_dir = str(voc.parent.parent / f"results_{model_type}")
+    argv = [logs, "--root_path", str(voc), "--model_type", model_type, "--mode", "test",
+            "--result_dir", result_dir, "--batch_size", str(TRAINER_EVAL_BATCH)]
+    reset_launches()
+    t = time.perf_counter()
+    aps = eval_pascal.main(argv)
+    eval_s = time.perf_counter() - t
+    eval_launches = launch_counts()
+    batches_n = -(-TRAINER_TEST // TRAINER_EVAL_BATCH)
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["nms_alive_sorted"] = batches_n + TRAINER_TEST
+    if model_type == "fpn":
+        expected["roi_align_multilevel"] = batches_n
+    print(f"{name}_trainer_eval: kernel launches {eval_launches} (expected {expected}: "
+          f"{batches_n} batches, {TRAINER_TEST} images)")
+    require(eval_launches == expected, f"{name}_trainer_eval launches {eval_launches}")
+    files = [f for f in os.listdir(result_dir) if f.endswith(".txt")]
+    require(sorted(files) == sorted(f"{c}.txt" for c in PASCAL_CLASSES), f"result files {files}")
+    require(len(aps) == 20 and all(0.0 <= ap <= 1.0 for ap in aps), f"APs {aps}")
+    print(f"{name}_trainer_eval: eval_pascal from the step-{TRAINER_STEPS} checkpoint over "
+          f"{TRAINER_TEST} test JPEGs in {eval_s:.2f} s (model build, restore, decode, "
+          f"inference, files, voc_eval), 20 result files, 20 APs in [0, 1], mAP "
+          f"{float(np.mean(aps)):.4f} after {TRAINER_STEPS} steps from random weights  ({card})")
+
+    # the idle share of trainer steps with the input pipeline
+    trainer.step_fn = plain_step
+    trainer.logging_every = trainer.summary_every = 10**9  # no read-back in the window
+    pipeline = prefetch(dataset_factory("pascal", "train", dict(data_cfg, seed=2)))
+    trainer.train_one_epoch(pipeline, steps=2)  # warm-up, fills the queue
+    trainer_profile(trainer, pipeline, 4, card)
+    pipeline.close()
+    del det, det2, trainer, restored
+    torch.cuda.empty_cache()
+    return {f"{name}_trainer": launches, f"{name}_trainer_eval": eval_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU",
@@ -1451,11 +1663,18 @@ def main() -> int:
     requests = make_requests()
     paths = {m: drive_path(m, requests, card) for m in ("faster_rcnn", "fpn")}
     print(f"serving phases done at {time.perf_counter() - t_start:.1f} s")
+    bare_ms = {}
     for model_type in ("fpn", "faster_rcnn"):
-        paths.update(drive_training(model_type, card))
+        trained, bare_ms[model_type] = drive_training(model_type, card)
+        paths.update(trained)
     print(f"training phases done at {time.perf_counter() - t_start:.1f} s")
     paths.update(drive_voc_eval(requests, card))
     print(f"eval phase done at {time.perf_counter() - t_start:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        voc, records = write_rehearsal_tree(Path(tmp))
+        for model_type in ("faster_rcnn", "fpn"):
+            paths.update(drive_trainer(model_type, voc, records, bare_ms[model_type], card))
+    print(f"trainer phases done at {time.perf_counter() - t_start:.1f} s")
 
     main_cases = {  # kernel -> (its records, the main-path case, the case's shape)
         "nms_alive_sorted": (nms, NMS_MAIN, "[4,6000]->1000 @0.7"),

@@ -192,6 +192,29 @@ def test_roi_align_wrapper_imports_without_nvcc_and_refuses_cpu_tensors():
     assert proc.stdout.strip() == "NO-NVCC"
 
 
+def test_trainer_checkpoints_and_clis_import_without_jax():
+    proc = _run(
+        """
+        import sys
+        from tf_eager_object_detection_tpu_torch.training import checkpoints, trainer
+        from tf_eager_object_detection_tpu_torch.ref_import import cli
+        from tf_eager_object_detection_tpu_torch.utils import visual
+        from tf_eager_object_detection_tpu_torch.scripts import (
+            eval_pascal, generate_pascal_tf_records, infer, train, voc_rehearsal,
+        )
+        for mod in (eval_pascal, infer, train, voc_rehearsal):
+            try:
+                mod.main(["--help"] if mod is not voc_rehearsal else ["gen", "--help"])
+            except SystemExit as e:
+                assert e.code == 0
+""" + _NO_JAX + """
+        print("OK")
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
 def test_chip_smoke_imports_only_the_port():
     proc = _run(
         """

@@ -237,7 +237,7 @@ def test_decode_jpeg_without_a_decoder_raises(voc_root, monkeypatch):
         data = f.read()
     monkeypatch.setattr(pascal, "cv2", None)
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(RuntimeError, match="ROADMAP item 4"):
+    with pytest.raises(RuntimeError, match="ROADMAP item 10"):
         pascal.decode_jpeg(data)
 
 

@@ -13,7 +13,7 @@ Images are decoded and preprocessed in a small thread pool, each with a
 `np.random.RandomState` seeded from the iterator's seed, so a seed gives
 the same batches. JPEGs are decoded by cv2 where it is installed, else by
 PIL; where neither is, decoding raises (a decoder that needs neither is
-ROADMAP item 4). The JAX module's native decoder (`tpu_native_decode`) is
+ROADMAP item 10). The JAX module's native decoder (`tpu_native_decode`) is
 not carried over.
 """
 
@@ -54,7 +54,7 @@ def _pil():
     except ImportError:
         raise RuntimeError(
             "decoding a JPEG needs cv2 or PIL, and neither is installed; a decoder "
-            "of the port's own is ROADMAP item 4"
+            "of the port's own is ROADMAP item 10"
         ) from None
     return Image
 

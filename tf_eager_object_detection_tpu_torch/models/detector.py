@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from tf_eager_object_detection_tpu_torch.models.freeze import freeze_
+from tf_eager_object_detection_tpu_torch.models.layers import FrozenBatchNorm
 from tf_eager_object_detection_tpu_torch.ops.losses import cls_loss, smooth_l1_loss
 from tf_eager_object_detection_tpu_torch.ops.prediction import Detections, post_ops_prediction
 from tf_eager_object_detection_tpu_torch.ops.sampling import (
@@ -70,7 +71,7 @@ class ServingDetector(nn.Module):
         cfg = dict(config)
         if backbone not in RESNET_DEPTHS:
             raise NotImplementedError(
-                f"backbone {backbone!r} is not ported yet (ROADMAP queue 1, other backbones)"
+                f"backbone {backbone!r} is not ported yet (ROADMAP item 6, other backbones)"
             )
         if cfg.get("tpu_compute_dtype", "float32") != "float32":
             raise NotImplementedError("the port serves float32 only; bf16 is a later item")
@@ -84,18 +85,29 @@ class ServingDetector(nn.Module):
         return self._FIXED_INIT_STD.get(name, 1.0 / math.sqrt(fan_in))
 
     @torch.no_grad()
-    def _place(self, seed: int) -> None:
-        """Seeded random init (normal draws from a CPU torch.Generator), the
-        freeze policy, then move to `self.device` and switch to eval (no
-        layer of the port behaves differently in training). `generator`, on
-        the device and seeded alike, draws the samplers' random numbers when
-        `loss_fn` is given none."""
+    def init_params(self, seed: int) -> None:
+        """Seeded random weights, in place: convolution and dense weights
+        from normal draws of a CPU torch.Generator, biases 0, FrozenBatchNorm
+        statistics at the identity (gamma 1, beta 0, mean 0, variance 1), as
+        the JAX `init_params` initializes them."""
         gen = torch.Generator().manual_seed(seed)
         for name, mod in self.named_modules():
             if isinstance(mod, (nn.Conv2d, nn.Linear)):
                 std = self._init_std(name, mod.weight[0].numel())
                 mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen) * std)
                 mod.bias.zero_()
+            elif isinstance(mod, FrozenBatchNorm):
+                for buf, value in (("gamma", 1.0), ("beta", 0.0), ("moving_mean", 0.0),
+                                   ("moving_variance", 1.0)):
+                    getattr(mod, buf).fill_(value)
+
+    @torch.no_grad()
+    def _place(self, seed: int) -> None:
+        """`init_params(seed)`, the freeze policy, then move to `self.device`
+        and switch to eval (no layer of the port behaves differently in
+        training). `generator`, on the device and seeded alike, draws the
+        samplers' random numbers when `loss_fn` is given none."""
+        self.init_params(seed)
         freeze_(self)
         self.to(self.device).eval()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)

@@ -25,6 +25,6 @@ def model_factory(model_type: str, backbone: str, config: dict, device="cuda", s
         return _DETECTORS[model_type](backbone, config, device=device, seed=seed)
     if model_type == "faster_rcnn" and backbone == "vgg16":
         raise NotImplementedError(
-            "faster_rcnn/vgg16 is not ported yet (ROADMAP queue 1, other backbones)"
+            "faster_rcnn/vgg16 is not ported yet (ROADMAP item 6, other backbones)"
         )
     raise ValueError(f"unknown backbone {backbone} for {model_type}")

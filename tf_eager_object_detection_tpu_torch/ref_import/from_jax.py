@@ -1,4 +1,5 @@
-"""Weight bridge: flax parameters of the JAX package -> this port's state_dict.
+"""Weight bridge between the flax parameters of the JAX package and this
+port's state_dict, both ways.
 
 Input is the flat `{"extractor/conv1_conv/kernel": ndarray, ...}` mapping
 that `tf_eager_object_detection_tpu/training/checkpoints.py::save_params`
@@ -13,7 +14,10 @@ Any leaf that the port has no slot for, or any slot that no leaf fills,
 raises. Trees shaped like the parameters (gradients, momentum traces) cross
 with the same layout rules (`parameter_tree_from_jax`), without the
 BatchNorm leaves: in the port those are frozen buffers, with no gradient
-and no trace.
+and no trace. `flat_params_from_state_dict` is the inverse (port names ->
+flax paths, OIHW -> HWIO, [out, in] -> [in, out], BatchNorm buffers as
+they are): the port's `training/checkpoints.py::save_params` writes what
+the JAX `load_params` reads.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 from torch import nn
 
 __all__ = ["read_flat_params", "state_dict_from_jax", "load_jax_params",
-           "parameter_tree_from_jax"]
+           "parameter_tree_from_jax", "flat_params_from_state_dict"]
 
 _BN_LEAVES = ("gamma", "beta", "moving_mean", "moving_variance")
 
@@ -49,6 +53,30 @@ def _convert_leaf(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
     if leaf == "bias" or leaf in _BN_LEAVES:
         return f"{name}.{leaf}", value
     raise ValueError(f"{path}: unknown flax leaf {leaf!r}")
+
+
+def _to_jax_leaf(name: str, value: np.ndarray) -> tuple[str, np.ndarray]:
+    """The inverse of `_convert_leaf`."""
+    scope, leaf = name.rsplit(".", 1)
+    path = scope.replace(".", "/")
+    if leaf == "weight":
+        if value.ndim == 4:
+            return f"{path}/kernel", value.transpose(2, 3, 1, 0)
+        if value.ndim == 2:
+            return f"{path}/kernel", value.T
+        raise ValueError(f"{name}: weight of rank {value.ndim}")
+    if leaf == "bias" or leaf in _BN_LEAVES:
+        return f"{path}/{leaf}", value
+    raise ValueError(f"{name}: no flax leaf for {leaf!r}")
+
+
+def flat_params_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """A port state_dict -> the flat flax mapping {"a/b/leaf": float32 ndarray}."""
+    out: dict[str, np.ndarray] = {}
+    for name, tensor in state_dict.items():
+        path, value = _to_jax_leaf(name, tensor.detach().cpu().numpy())
+        out[path] = np.ascontiguousarray(value, dtype=np.float32)
+    return out
 
 
 def state_dict_from_jax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:

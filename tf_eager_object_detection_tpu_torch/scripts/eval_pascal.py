@@ -1,0 +1,116 @@
+"""Pascal VOC evaluation command line (port of `scripts/eval_pascal.py`).
+
+Runs the detector over the eval set, writes per-class VOC detection files
+and prints each class's AP and the mAP (detectron-style `voc_eval`).
+
+    python -m tf_eager_object_detection_tpu_torch.scripts.eval_pascal CKPT \
+        --root_path /data/VOCdevkit/VOC2007 --model_type faster_rcnn --backbone resnet50
+
+CKPT is a checkpoint directory of the port's trainer or a params `.npz` in
+the JAX package's format. Runs on the card unless `--device cpu` is given.
+Not ported yet: `--data_parallel` and `--spatial_partition` (ROADMAP item 8).
+"""
+
+import argparse
+import glob
+import os
+
+from tf_eager_object_detection_tpu_torch.ref_import.cli import add_import_flags
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("ckpt", nargs="?", default=None,
+                   help="checkpoint dir or params .npz; optional with --use_local_result_files")
+    p.add_argument("--root_path", required=True, help=".../VOCdevkit/VOC2007")
+    p.add_argument("--model_type", default="faster_rcnn", choices=["faster_rcnn", "fpn"])
+    p.add_argument("--backbone", default="resnet50",
+                   choices=["vgg16", "resnet50", "resnet101", "resnet152"])
+    p.add_argument("--mode", default="test")
+    p.add_argument("--result_dir", default="./voc_results")
+    # VOC07's 11-point metric by default, as the reference
+    p.add_argument("--use_07_metric", action="store_true", default=True)
+    p.add_argument("--no_07_metric", dest="use_07_metric", action="store_false")
+    p.add_argument("--preprocessing_type", default="caffe", choices=["caffe", "tf"])
+    p.add_argument("--dataset_type", default="cv2", choices=["cv2", "tf"],
+                   help="cv2: the JPEGs of the VOC tree; tf: eval TFRecords")
+    p.add_argument("--tf_records_glob", default=None,
+                   help="with --dataset_type tf: glob of eval TFRecords")
+    p.add_argument("--use_local_result_files", action="store_true",
+                   help="score the result files already in --result_dir, run no model")
+    p.add_argument("--batch_size", type=int, default=8,
+                   help="bucket-grouped im_detect_batch size (1 = one image at a time)")
+    p.add_argument("--config_override", action="append", default=[], metavar="KEY=JSON",
+                   help="override one config key (JSON value; repeatable)")
+    p.add_argument("--device", default="cuda", help="torch device (default: the card)")
+    add_import_flags(p)
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    from tf_eager_object_detection_tpu_torch.config.config_factory import (
+        apply_config_overrides,
+        config_factory,
+    )
+    from tf_eager_object_detection_tpu_torch.data.label_map import PASCAL_CLASSES
+    from tf_eager_object_detection_tpu_torch.evaluation.voc_eval import voc_eval
+
+    cfg = apply_config_overrides(dict(config_factory("pascal", args.model_type)),
+                                 args.config_override)
+    os.makedirs(args.result_dir, exist_ok=True)
+    result_fmt = os.path.join(args.result_dir, "{:s}.txt")
+
+    if not args.use_local_result_files:
+        if not args.ckpt:
+            raise SystemExit("a checkpoint is required unless --use_local_result_files is set")
+        from tf_eager_object_detection_tpu_torch.data.pascal import (
+            pascal_eval_iterator,
+            pascal_eval_iterator_from_tf_records,
+        )
+        from tf_eager_object_detection_tpu_torch.evaluation.pascal_eval_files import (
+            get_prediction_files,
+        )
+        from tf_eager_object_detection_tpu_torch.models.model_factory import model_factory
+        from tf_eager_object_detection_tpu_torch.ref_import.cli import load_checkpoint_params
+
+        detector = model_factory(args.model_type, args.backbone, cfg, device=args.device)
+        image_format = load_checkpoint_params(detector, args.ckpt, args)
+        if args.dataset_type == "tf":
+            if not args.tf_records_glob:
+                raise SystemExit("--dataset_type tf requires --tf_records_glob")
+            records = sorted(glob.glob(args.tf_records_glob))
+            if not records:
+                raise FileNotFoundError(args.tf_records_glob)
+            iterator, image_ids = pascal_eval_iterator_from_tf_records(
+                records, cfg, args.preprocessing_type, image_format=image_format)
+        else:
+            iterator, image_ids = pascal_eval_iterator(
+                args.root_path, args.mode, cfg, args.preprocessing_type,
+                image_format=image_format)
+        get_prediction_files(
+            detector, iterator, image_ids, result_fmt,
+            score_threshold=cfg["prediction_score_threshold"],
+            nms_iou_threshold=cfg["prediction_nms_iou_threshold"],
+            max_objects_per_class=cfg["max_objects_per_class_per_image"],
+            max_objects_per_image=cfg["max_objects_per_image"],
+            batch_size=args.batch_size,
+        )
+
+    annopath = os.path.join(args.root_path, "Annotations", "{:s}.xml")
+    imageset = os.path.join(args.root_path, "ImageSets", "Main", f"{args.mode}.txt")
+    cachedir = os.path.join(args.result_dir, "annotations_cache")
+    aps = []
+    for cls in PASCAL_CLASSES:
+        _, _, ap = voc_eval(result_fmt, annopath, imageset, cls, cachedir,
+                            ovthresh=cfg["evaluate_iou_threshold"],
+                            use_07_metric=args.use_07_metric)
+        aps.append(ap)
+        print(f"{cls:>15s} AP = {ap:.4f}")
+    print(f"{'mAP':>15s} = {sum(aps) / len(aps):.4f}")
+    return aps
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,100 @@
+"""Training command line (port of `scripts/train.py`).
+
+    python -m tf_eager_object_detection_tpu_torch.scripts.train --model_type faster_rcnn \
+        --backbone resnet50 --data_type pascal --tf_records_dir /data/tfrecords \
+        --logs_dir /tmp/logs --epochs 14
+
+Runs on the card unless `--device cpu` is given. Not ported yet:
+`--data_parallel`, `--multihost` and `--spatial_partition` (ROADMAP item 8),
+`--backbone_weights` (item 9); `--compute_dtype bfloat16` raises (item 5),
+`--data_type coco` raises (item 7).
+"""
+
+import argparse
+import glob
+import os
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--model_type", default="faster_rcnn", choices=["faster_rcnn", "fpn"])
+    p.add_argument("--backbone", default="resnet50",
+                   choices=["vgg16", "resnet50", "resnet101", "resnet152"])
+    p.add_argument("--data_type", default="pascal", choices=["pascal", "coco"])
+    p.add_argument("--tf_records_dir", default=None,
+                   help="directory holding the *train*.tfrecords shards")
+    p.add_argument("--logs_dir", default="./logs")
+    p.add_argument("--restore_ckpt_path", default=None,
+                   help="checkpoint directory to start from (default: the latest in --logs_dir)")
+    p.add_argument("--batch_size", type=int, default=None, help="batch (default: config)")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--steps_per_epoch", type=int, default=5000)
+    p.add_argument("--logging_every_n_steps", type=int, default=100)
+    p.add_argument("--summary_every_n_steps", type=int, default=100)
+    p.add_argument("--saving_every_n_steps", type=int, default=5000)
+    p.add_argument("--preprocessing_type", default="caffe", choices=["caffe", "tf"])
+    p.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"],
+                   help="override the config's tpu_compute_dtype (the port trains float32)")
+    p.add_argument("--learning_rate", type=float, default=None,
+                   help="override the initial learning rate (later ones scale with it)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--config_override", action="append", default=[], metavar="KEY=JSON",
+                   help="override one config key (value parsed as JSON; repeatable)")
+    p.add_argument("--device", default="cuda", help="torch device (default: the card)")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.data_type == "coco":
+        raise NotImplementedError("--data_type coco: the COCO data path is not ported yet "
+                                  "(ROADMAP item 7)")
+    if args.compute_dtype == "bfloat16":
+        raise NotImplementedError("--compute_dtype bfloat16: the port trains float32 only; "
+                                  "bf16 is ROADMAP item 5")
+    from tf_eager_object_detection_tpu_torch.config.config_factory import (
+        apply_config_overrides,
+        config_factory,
+    )
+    from tf_eager_object_detection_tpu_torch.data.dataset_factory import dataset_factory
+    from tf_eager_object_detection_tpu_torch.models.model_factory import model_factory
+    from tf_eager_object_detection_tpu_torch.training.trainer import Trainer
+
+    cfg = apply_config_overrides(dict(config_factory(args.data_type, args.model_type)),
+                                 args.config_override)
+    if args.batch_size:
+        cfg["tpu_train_batch_size_per_device"] = args.batch_size
+    if args.compute_dtype:
+        cfg["tpu_compute_dtype"] = args.compute_dtype
+    if args.learning_rate:
+        lrs = cfg["learning_rate_multi_lrs"]
+        scale = args.learning_rate / lrs[0]
+        cfg["learning_rate_multi_lrs"] = [lr * scale for lr in lrs]
+    detector = model_factory(args.model_type, args.backbone, cfg, device=args.device,
+                             seed=args.seed)
+
+    records = sorted(glob.glob(os.path.join(args.tf_records_dir or ".", "*train*.tfrecords")))
+    if not records:
+        raise FileNotFoundError(f"no *train*.tfrecords under {args.tf_records_dir}")
+    batches = dataset_factory("pascal", "train", {
+        "model_config": cfg,
+        "tf_records_list": records,
+        "batch_size": cfg["tpu_train_batch_size_per_device"],
+        "preprocessing_type": args.preprocessing_type,
+        "seed": args.seed,
+    })
+    trainer = Trainer(
+        detector,
+        train_dir=args.logs_dir,
+        logging_every_n_steps=args.logging_every_n_steps,
+        summary_every_n_steps=args.summary_every_n_steps,
+        saving_every_n_steps=args.saving_every_n_steps,
+        restore_ckpt_path=args.restore_ckpt_path,
+        seed=args.seed,
+    )
+    trainer.train(batches, args.epochs or cfg["epochs"], args.steps_per_epoch)
+
+
+if __name__ == "__main__":
+    main()

@@ -73,6 +73,27 @@ class MomentumOptimizer:
     def lr(self) -> float:
         return self.schedule(self.count)
 
+    def state_dict(self) -> Dict[str, Any]:
+        """{"trace": {name: tensor}, "count": int}: the momentum traces (the
+        tensors themselves, not copies) and the step count."""
+        return {"trace": dict(self.trace), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Copy traces of the same names and shapes into place and set the
+        step count; raises on any other set of names."""
+        trace = state["trace"]
+        if set(trace) != set(self.trace):
+            unexpected = sorted(set(trace) - set(self.trace))
+            missing = sorted(set(self.trace) - set(trace))
+            raise KeyError(f"momentum traces: unexpected {unexpected[:8]}, missing {missing[:8]}")
+        for name, t in self.trace.items():
+            if tuple(trace[name].shape) != tuple(t.shape):
+                raise ValueError(f"{name}: trace of shape {tuple(trace[name].shape)}, expected "
+                                 f"{tuple(t.shape)}")
+            t.copy_(trace[name])
+        self.count = int(state["count"])
+
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
@@ -103,7 +124,7 @@ def make_optimizer(cfg: Dict[str, Any], detector: torch.nn.Module) -> MomentumOp
     opt_type = cfg.get("optimizer_type", "momentum")
     if opt_type == "adam":
         raise NotImplementedError(
-            "optimizer_type='adam' is not ported yet (ROADMAP queue 5, training CLIs)"
+            "optimizer_type='adam' is not ported yet (ROADMAP item 10)"
         )
     if opt_type != "momentum":
         raise ValueError(f"optimizer_type={opt_type!r}: expected 'momentum' or 'adam'")
