@@ -48,6 +48,16 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    must equal the count of a model of its walk (`backward_work`);
    `grid_sample` (its autograd backward for K5 / K3) per level as a
    near-equivalent reference only.
+   Then the bf16-plane variants (the planes of bfloat16 compute): K4 at the
+   served shape, the training shape, the edge / invalid / aspect fixture,
+   C = 42 and planes 2 bytes off a 16-byte boundary, and K2 per level at the
+   training shape, each bit-equal to the same kernel on the planes widened
+   to float32 and within 1e-5 of the plain version; K5 and K3 for bf16
+   planes at B=1 (N(0, 1) and pool-sparse g) and B=4: the float32
+   accumulators within 1e-5 of sum |g * w|, the returned bf16 planes equal
+   to them rounded; graph-replay times (the backward's with the zeroing and
+   the cast, and the cast alone) beside the float32 variants', bounds from
+   the bf16 bytes.
 6. Faster R-CNN ResNet-50 serving, then FPN ResNet-50 serving, each at full
    width with seeded random weights and the stock Pascal config: 8 synthetic
    VOC-sized requests through `preprocess_eval_image` -> `batched_im_detect`
@@ -56,7 +66,11 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    the path went through the kernels (launch counts set to 0 before each
    path and read after it). Holds `predict` on the card against the port's
    CPU path on a small input. Prints each model's batch time, stages, one
-   profiled call and peak memory.
+   profiled call and peak memory. Then both again with bfloat16 compute
+   (`tpu_compute_dtype`; paths `faster_rcnn_bf16`, `fpn_bf16`): K1 and,
+   for FPN, K4's bf16 variant launched as configured, detections finite
+   with float32 scores, the backbone output within rel.mean() < 0.05 of the
+   float32 detector of the same seed, and the figures beside float32's.
 7. FPN ResNet-50 training, then Faster R-CNN ResNet-50 (C4) training, each
    with the stock config, full width, seeded random weights: one loss +
    backward on the card, with cuDNN off and then on, against the port's CPU
@@ -69,7 +83,13 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    4, K3 4 per level; Faster R-CNN K1 1, its RoI crop being two matmuls);
    losses finite, sample counts as configured; step times, stages, one
    profiled B=1 step of each path, peak memory and conv + linear work per
-   step.
+   step. Then both with bfloat16 compute (`fpn_bf16_train_b1` and the
+   rest, `BF16_STEPS` steps each): one loss and backward on the card
+   against the port's CPU bf16 path (the CPU step's proposals pinned,
+   losses rtol 2e-2, gradient cosines), the bf16 variants of K4 / K5 and
+   K2 / K3 launched as configured, parameters and momentum float32 after
+   the steps, and the peak memory of a C4 B=4 step without and with
+   `tpu_remat`.
 8. `frcnn_voc_eval`: the VOC eval path on the card. A synthetic VOC layout
    (annotation XMLs and `ImageSets/Main/test.txt`, the 8 requests with 1-8
    seeded boxes each) in a temporary directory; the images go to
@@ -97,7 +117,8 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    bare step's of phase 7, and a profile of 4 trainer steps: wall, device
    busy, idle share, the host's wait for the next batch and the kernels
    launched a step.
-10. Prints a JSON line with the five kernels' records, then as its last line
+10. Prints a JSON line with the records of the five kernels and of the four
+   RoIAlign kernels' bf16-plane variants, then as its last line
    `{"ok": true, "device": {...}}`. Any failure raises: exit code != 0.
 """
 
@@ -194,6 +215,7 @@ CROP = 14
 # NVIDIA H100 SXM, published: HBM bytes/s and float32 (non-tensor-core) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # dense tensor-core rate
 NMS_OPS_PER_IOU = 15  # float ops of one IoU test in csrc/nms.cu::overlaps
 ROI_OPS_PER_SAMPLE = 9  # 6 multiplies and 3 adds per sample and channel
 BWD_OPS_PER_TAP = 2  # a multiply and an add per nonzero tap and channel
@@ -201,19 +223,27 @@ TRAIN_ROIS = 256  # roi_total_sample_number of the stock config
 # the bare B=1 training step's median recorded in PERF.md before the trainer
 # existed (H100 80GB HBM3, 700 W), printed beside the trainer's
 RECORDED_BARE_STEP_MS = {"fpn": 57.96, "faster_rcnn": 51.00}
-# the kernels of the port: launch counter and the TPU kernel it replaces
+# the kernels of the port: launch counter, the plane dtype of the variant
+# (the wrappers count launches by it) and the TPU kernel it replaces
+_PALLAS = "tf_eager_object_detection_tpu/ops/pallas/"
 KERNELS = {
-    "nms_alive_sorted": (NMS_KERNEL, "tf_eager_object_detection_tpu/ops/pallas/nms_pallas.py:28"),
-    "roi_align_single_level": (ROI_ALIGN_SINGLE_KERNEL,
-                               "tf_eager_object_detection_tpu/ops/pallas/roi_align_pallas.py:67"),
-    "roi_align_single_level_backward": (
-        ROI_ALIGN_SINGLE_BACKWARD_KERNEL,
-        "tf_eager_object_detection_tpu/ops/pallas/roi_align_pallas.py:176"),
-    "roi_align_multilevel": (ROI_ALIGN_KERNEL,
-                             "tf_eager_object_detection_tpu/ops/pallas/roi_align_pallas.py:664"),
-    "roi_align_multilevel_backward": (
-        ROI_ALIGN_BACKWARD_KERNEL,
-        "tf_eager_object_detection_tpu/ops/pallas/roi_align_pallas.py:759"),
+    "nms_alive_sorted": (NMS_KERNEL, "float32", _PALLAS + "nms_pallas.py:28"),
+    "roi_align_single_level": (ROI_ALIGN_SINGLE_KERNEL, "float32",
+                               _PALLAS + "roi_align_pallas.py:67"),
+    "roi_align_single_level_backward": (ROI_ALIGN_SINGLE_BACKWARD_KERNEL, "float32",
+                                        _PALLAS + "roi_align_pallas.py:176"),
+    "roi_align_multilevel": (ROI_ALIGN_KERNEL, "float32", _PALLAS + "roi_align_pallas.py:664"),
+    "roi_align_multilevel_backward": (ROI_ALIGN_BACKWARD_KERNEL, "float32",
+                                      _PALLAS + "roi_align_pallas.py:759"),
+    # the bf16-plane variants (bfloat16 compute): the same wrappers and sources
+    "roi_align_single_level_bf16": (ROI_ALIGN_SINGLE_KERNEL, "bfloat16",
+                                    _PALLAS + "roi_align_pallas.py:67"),
+    "roi_align_single_level_backward_bf16": (ROI_ALIGN_SINGLE_BACKWARD_KERNEL, "bfloat16",
+                                             _PALLAS + "roi_align_pallas.py:176"),
+    "roi_align_multilevel_bf16": (ROI_ALIGN_KERNEL, "bfloat16",
+                                  _PALLAS + "roi_align_pallas.py:664"),
+    "roi_align_multilevel_backward_bf16": (ROI_ALIGN_BACKWARD_KERNEL, "bfloat16",
+                                           _PALLAS + "roi_align_pallas.py:759"),
 }
 
 
@@ -230,12 +260,20 @@ def card_line() -> str:
 
 
 def reset_launches() -> None:
-    for kernel, _ in KERNELS.values():
-        kernel.launches = 0
+    for kernel, _, _ in KERNELS.values():
+        kernel.reset_launches()
 
 
 def launch_counts() -> dict:
-    return {name: kernel.launches for name, (kernel, _) in KERNELS.items()}
+    """Launches of each kernel variant since `reset_launches`; raises if a
+    wrapper counted a launch that no variant accounts for."""
+    counts = {name: kernel.launches_by_dtype.get(dtype, 0)
+              for name, (kernel, dtype, _) in KERNELS.items()}
+    for kernel in {k for k, _, _ in KERNELS.values()}:
+        mine = sum(counts[n] for n, (k, _, _) in KERNELS.items() if k is kernel)
+        require(mine == kernel.launches, f"{kernel.name}: {kernel.launches} launches, "
+                f"by dtype {kernel.launches_by_dtype}")
+    return counts
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -527,11 +565,13 @@ def plain_per_image(args):
 
 
 def roi_bound(args):
-    """Bound of one K4 call on these inputs: the output and the small inputs
-    once, the plane cells that in-range samples of valid rois touch once;
-    9 float ops per in-range sample and channel."""
+    """Bound of one K4 call on these inputs: the output (float32) and the
+    small inputs once, the plane cells (in the planes' dtype) that in-range
+    samples of valid rois touch once; 9 float ops per in-range sample and
+    channel."""
     planes, rois, levels, valid, ih, iw, crop, strides = args
     c = planes[0].shape[-1]
+    plane_bytes = planes[0].element_size()
     nbytes = rois.shape[0] * rois.shape[1] * crop * crop * c * 4
     nbytes += sum(t.numel() * t.element_size() for t in (rois, levels, valid, ih, iw))
     samples = 0
@@ -550,7 +590,7 @@ def roi_bound(args):
                 yy = (y0 + dy).clamp_max(h - 1)[..., :, None].expand(ok.shape)
                 xx = (x0 + dx).clamp_max(w - 1)[..., None, :].expand(ok.shape)
                 touched[bidx.expand(ok.shape)[ok], yy[ok], xx[ok]] = True
-        nbytes += int(touched.sum()) * c * 4
+        nbytes += int(touched.sum()) * c * plane_bytes
     return bound(nbytes, samples * c * ROI_OPS_PER_SAMPLE)
 
 
@@ -710,13 +750,14 @@ def backward_work(g, args):
 
 def backward_bound(g, args):
     """Bound of one backward call: g of the valid rois read once, every
-    gradient plane written once (zeros plus the scatter), the small inputs;
-    a multiply and an add per nonzero tap and nonzero channel of g. Also the
-    work of `backward_work`."""
+    gradient plane written once in the planes' dtype (zeros plus the
+    scatter), the small inputs; a multiply and an add per nonzero tap and
+    nonzero channel of g. Also the work of `backward_work`."""
     planes, rois, levels, valid, ih, iw, crop, strides = args
     c = planes[0].shape[-1]
     work = backward_work(g, args)
-    nbytes = int(valid.sum()) * crop * crop * c * 4 + sum(p.numel() * 4 for p in planes)
+    nbytes = int(valid.sum()) * crop * crop * c * 4 + sum(p.numel() * p.element_size()
+                                                           for p in planes)
     nbytes += sum(t.numel() * t.element_size() for t in (rois, levels, valid, ih, iw))
     return (*bound(nbytes, work[1] * BWD_OPS_PER_TAP), *work)
 
@@ -852,6 +893,144 @@ def check_training_kernels(card, counting):
     return record
 
 
+# ------------------------------------------------------------- bf16 planes
+SERVED_HWS = [[600, 800], [600, 1000], [576, 768], [640, 853]]
+
+
+def bf16_planes(args):
+    """The fixture with its planes rounded to bfloat16."""
+    return ([p.bfloat16() for p in args[0]], *args[1:])
+
+
+def widened(args):
+    """The fixture with its planes widened to float32 (exactly)."""
+    return ([p.float() for p in args[0]], *args[1:])
+
+
+def check_bf16_forward(card):
+    """K4 and K2 on bf16 planes (the bf16 variant of csrc/roi_align.cu):
+    bit-equal to the same kernel on the planes widened to float32, on its
+    16-byte path (8 channels a unit) and its scalar path (C = 42, and planes
+    2 bytes off a 16-byte boundary); within atol/rtol 1e-5 of the plain
+    version; graph-replay times beside the float32 variant's on the widened
+    planes; bounds from the bf16 plane bytes. Returns {kernel: {case: record}}."""
+    rng = np.random.RandomState(11)
+    spec = dict(invalid=0.3, special=True)
+    cases = [
+        ("served", roi_fixture(rng, BATCH, 1000, SERVED_HWS)),
+        ("train_b1", roi_fixture(rng, 1, TRAIN_ROIS, [[600, 800]], invalid=0.0)),
+        ("edges_invalid_elongated", roi_fixture(rng, 2, 64, [[600, 1000], [500, 380]], **spec)),
+        ("channels_42", roi_fixture(rng, 2, 64, [[600, 1000], [500, 380]], c=42, **spec)),
+        ("misaligned_planes", misaligned(bf16_planes(
+            roi_fixture(rng, 2, 64, [[600, 1000], [500, 380]], **spec)))),
+    ]
+    record = {"roi_align_multilevel_bf16": {}, "roi_align_single_level_bf16": {}}
+    for name, args in cases:
+        a16 = bf16_planes(args)
+        a32 = widened(a16)
+        variants = [("roi_align_multilevel_bf16", ROI_ALIGN_KERNEL, [a16], [a32])]
+        if name == "train_b1":  # K2: one launch per level, as the per-level training path
+            variants.append(("roi_align_single_level_bf16", ROI_ALIGN_SINGLE_KERNEL,
+                             per_level(a16), per_level(a32)))
+        for kname, kernel, l16, l32 in variants:
+            err = 0.0
+            for x16, x32 in zip(l16, l32):
+                got, want = kernel(*x16), kernel(*x32)
+                path = "16-byte" if vectorizable(x16[0], got) else "scalar"
+                torch.cuda.synchronize()
+                require(torch.equal(got, want), f"{kname} {name}: bf16 planes differ from the "
+                        f"float32 kernel on the widened planes")
+                ref = plain_per_image(x16)
+                err = max(err, float((got - ref).abs().max()))
+                require(float(((got - ref).abs() - 1e-5 * ref.abs()).max()) <= 1e-5,
+                        f"{kname} {name}: differs from the plain version by {err}")
+                del got, want, ref
+            ms = graph_ms(lambda: [kernel(*x) for x in l16])
+            f32_ms = graph_ms(lambda: [kernel(*x) for x in l32])
+            plain_ms = cuda_ms(lambda: [plain_per_image(x) for x in l16], iters=1, warmup=1)
+            bounds = [roi_bound(x) for x in l16]
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=sum(b[0] for b in bounds), bound_by=bounds[0][1],
+                       float32_planes_ms=f32_ms, path=path)
+            record[kname][name] = rec
+            b, n = args[1].shape[:2]
+            print(f"{kname} {name} [B={b}, N={n}, C={args[0][0].shape[-1]}, {path} path, "
+                  f"{len(l16)} launch(es)]: bit-equal to the float32 kernel on the widened planes,"
+                  f" max_abs_err {err:.3g} vs plain (atol/rtol 1e-5), kernel {ms:.4f} ms "
+                  f"(float32 planes {f32_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})  ({card})")
+        del a16, a32
+        torch.cuda.empty_cache()
+    return record
+
+
+def check_backward_bf16(kernel, g, args_list):
+    """A backward kernel for bf16 planes (one launch per element of
+    `args_list`): the float32 accumulators within 1e-5 of sum |g * w| of the
+    plain backward, the returned bf16 planes equal to them rounded. Returns
+    the record, with the time of the whole call (zeroing, kernel, cast) and
+    of the cast alone."""
+    err = rel = 0.0
+    accs = []
+    for args in args_list:
+        shapes = [tuple(p.shape) for p in args[0]]
+        planes16, acc = kernel.accumulate(g, shapes, *args[1:], torch.bfloat16)
+        torch.cuda.synchronize()
+        require(all(d.dtype == torch.bfloat16 and torch.equal(d, a.bfloat16())
+                    for d, a in zip(planes16, acc)),
+                "bf16 gradient planes are not the rounded accumulators")
+        ref = plain_backward(g, widened(args))
+        scale = plain_backward(g.abs(), widened(args))
+        for a, r, m in zip(acc, ref, scale):
+            diff = (a - r).abs()
+            require(bool((diff <= 1e-5 * m).all()) and bool(torch.isfinite(a).all()),
+                    f"bf16 backward accumulators differ: max abs err {float(diff.max())}")
+            err = max(err, float(diff.max()))
+            rel = max(rel, float((diff / m.clamp_min(1e-30)).max()))
+        accs.extend(acc)
+        del planes16, ref, scale
+    calls = [(tuple(tuple(p.shape) for p in a[0]), a[1:]) for a in args_list]
+    ms = graph_ms(lambda: [kernel(g, list(sh), *rest, torch.bfloat16) for sh, rest in calls])
+    f32_ms = graph_ms(lambda: [kernel(g, list(sh), *rest) for sh, rest in calls])
+    cast_ms = graph_ms(lambda: [a.to(torch.bfloat16) for a in accs])
+    plain_ms = cuda_ms(lambda: [plain_backward(g, a) for a in args_list], iters=1, warmup=1)
+    bounds = [backward_bound(g, a) for a in args_list]
+    return dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
+                bound_ms=sum(b[0] for b in bounds), bound_by=bounds[0][1], cast_ms=cast_ms,
+                float32_planes_ms=f32_ms)
+
+
+def check_bf16_backward(card):
+    """K5 (fused) and K3 (per level) for bf16 planes at the training shape
+    (B=1, N=256) with N(0, 1) and pool-sparse g, and at B=4. Returns
+    {kernel: {case: record}}."""
+    rng = np.random.RandomState(12)
+    train = bf16_planes(roi_fixture(rng, 1, TRAIN_ROIS, [[600, 800]], invalid=0.0))
+    cases = [("train_b1", train, dense_grad), ("train_b1_pool_sparse_g", train, pooled_grad),
+             ("train_b4", bf16_planes(roi_fixture(rng, BATCH, TRAIN_ROIS, SERVED_HWS,
+                                                  invalid=0.0)), dense_grad)]
+    record = {"roi_align_multilevel_backward_bf16": {},
+              "roi_align_single_level_backward_bf16": {}}
+    for case, args, make_grad in cases:
+        g = make_grad(args)
+        b, n = args[1].shape[:2]
+        for kname, kernel, args_list in (
+                ("roi_align_multilevel_backward_bf16", ROI_ALIGN_BACKWARD_KERNEL, [args]),
+                ("roi_align_single_level_backward_bf16", ROI_ALIGN_SINGLE_BACKWARD_KERNEL,
+                 per_level(args))):
+            rec = check_backward_bf16(kernel, g, args_list)
+            record[kname][case] = rec
+            print(f"{kname} {case} [B={b}, N={n}]: bf16 planes = the float32 accumulators "
+                  f"rounded; accumulators max_abs_err {rec['max_abs_err']:.3g}, max rel err "
+                  f"{rec['max_rel_err']:.3g} of sum|g*w| (tolerance 1e-5); call (zeroing, kernel, "
+                  f"cast) {rec['ms']:.4f} ms, of which the cast {rec['cast_ms']:.4f} ms (float32 "
+                  f"planes {rec['float32_planes_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms, "
+                  f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})  ({card})")
+        del g
+        torch.cuda.empty_cache()
+    return record
+
+
 # ------------------------------------------------------------------ serving
 def make_requests(seed: int = 0):
     """Raw uint8 RGB images: smooth gradients plus noise."""
@@ -896,6 +1075,8 @@ def check_detections(results, n, slots):
     for idx, (d, (raw_h, raw_w)) in results.items():
         require(d.boxes.shape == (slots, 4) and d.scores.shape == (slots,),
                 f"request {idx}: shape {tuple(d.boxes.shape)}")
+        require(d.boxes.dtype == d.scores.dtype == torch.float32,
+                f"request {idx}: dtypes {d.boxes.dtype}, {d.scores.dtype}")
         require(bool(torch.isfinite(d.boxes).all() and torch.isfinite(d.scores).all()),
                 f"request {idx}: non-finite output")
         v = d.valid
@@ -959,7 +1140,8 @@ def timed(fn):
 
 
 def stage_breakdown(det, images, hw, card):
-    """Host-clock time of each stage of one batch, synchronised between stages."""
+    """Host-clock time of each stage of one batch, synchronised between
+    stages; returns {stage: ms}."""
     with torch.inference_mode():
         if det.model_type == "fpn":
             (p_list, score, bbox), t_bb = timed(lambda: det._backbone_neck_rpn(images))
@@ -976,8 +1158,20 @@ def stage_breakdown(det, images, hw, card):
             _, t_head = timed(lambda: det.roi_head(crops.reshape(-1, *crops.shape[2:])))
             names = ("backbone+rpn", "proposals (incl. NMS)", "roi crop", "roi head")
     times = (t_bb, t_rp, t_crop, t_head)
-    print(f"{det.model_type} stages, batch {images.shape[0]} at {tuple(images.shape[1:3])}: "
+    print(f"{det.model_type} {dtype_name(det)} stages, batch {images.shape[0]} at "
+          f"{tuple(images.shape[1:3])}: "
           + ", ".join(f"{n} {t:.2f} ms" for n, t in zip(names, times)) + f"  ({card})")
+    return dict(zip(names, times))
+
+
+def dtype_name(det) -> str:
+    return str(det.compute_dtype).removeprefix("torch.")
+
+
+def peak_flop_per_s(det) -> float:
+    """The card's peak for the detector's compute dtype (convolutions and
+    dense layers)."""
+    return BF16_FLOP_PER_S if det.compute_dtype == torch.bfloat16 else F32_FLOP_PER_S
 
 
 def layer_flops(det, fn) -> int:
@@ -1021,7 +1215,7 @@ def device_profile(fn, card, top: int = 8):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
         print(f"profile: no device time recorded; idle share not measured  ({card})")
-        return
+        return None
     print(f"profile, one call: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f}  ({card})")
     for e in kernels[:top]:
@@ -1029,12 +1223,18 @@ def device_profile(fn, card, top: int = 8):
     ours = [(re.search(r"(nms_\w+_kernel|roi_align_ml_\w*kernel)", e.key), e) for e in kernels]
     print("  port kernels: " + ", ".join(
         f"{m.group(0)} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for m, e in ours if m))
+    return 1 - busy_ms / wall_ms
 
 
-def drive_path(model_type, requests, card):
-    """One model's serving path; returns the kernel launches of its run."""
-    cfg = dict(config_factory("pascal", model_type))
-    check_against_cpu(model_type, cfg, card)
+def drive_path(model_type, requests, card, dtype="float32", f32=None):
+    """One model's serving path in `dtype` compute; returns (the kernel
+    launches of its run, its figures). Under bfloat16 compute the backbone's
+    output is held against the float32 detector of the same seed and the
+    figures print beside `f32`'s, the float32 path's."""
+    cfg = dict(config_factory("pascal", model_type), tpu_compute_dtype=dtype)
+    bf16 = dtype == "bfloat16"
+    if not bf16:
+        check_against_cpu(model_type, cfg, card)
     det = model_factory(model_type, "resnet50", cfg, device="cuda", seed=0)
     serve(det, requests, cfg)  # warm-up: cuDNN algorithm choice, allocator
     torch.cuda.synchronize()
@@ -1050,16 +1250,19 @@ def drive_path(model_type, requests, card):
     check_detections(results, len(requests), slots)
     check_detections({0: (one, (int(hw[0]), int(hw[1])))}, 1, slots)
     # one batched RPN NMS per flushed batch, one class-batched NMS per image;
-    # FPN: one K4 launch per flushed batch and one for predict
+    # FPN: one K4 launch per flushed batch and one for predict, on planes of
+    # the compute dtype
     expected = dict.fromkeys(KERNELS, 0)
     expected["nms_alive_sorted"] = batches + len(requests) + 2
-    expected["roi_align_multilevel"] = batches + 1 if model_type == "fpn" else 0
-    print(f"{model_type} kernel launches in the main path: {launches} (expected {expected}: "
+    k4 = "roi_align_multilevel_bf16" if bf16 else "roi_align_multilevel"
+    expected[k4] = batches + 1 if model_type == "fpn" else 0
+    path = f"{model_type}_bf16" if bf16 else model_type
+    print(f"{path} kernel launches in the main path: {launches} (expected {expected}: "
           f"{batches} batches, {len(requests)} per-class NMS, predict)")
-    require(launches == expected, f"{model_type} launches {launches} != expected {expected}")
+    require(launches == expected, f"{path} launches {launches} != expected {expected}")
 
     lat = np.sort(np.asarray(list(latency.values()))) * 1e3
-    print(f"{model_type} serving {len(requests)} requests, batch {BATCH}, incl. host "
+    print(f"{path} serving {len(requests)} requests, batch {BATCH}, incl. host "
           f"preprocessing: {len(requests) / total:.3f} images/s, per-request latency p50 "
           f"{np.percentile(lat, 50):.1f} ms max {lat[-1]:.1f} ms  ({card})")
 
@@ -1074,19 +1277,50 @@ def drive_path(model_type, requests, card):
     batch_ms = cuda_ms(lambda: det.im_detect_batch(images, hws, scales), iters=5)
     predict_ms = cuda_ms(lambda: det.predict(images[0], hws[0]), iters=5)
     size = "x".join(map(str, images.shape[1:3]))
-    print(f"{model_type} im_detect_batch b{BATCH} {size}: {batch_ms:.2f} ms/batch = "
+    print(f"{path} im_detect_batch b{BATCH} {size}: {batch_ms:.2f} ms/batch = "
           f"{BATCH * 1e3 / batch_ms:.3f} images/s; predict b1: {predict_ms:.2f} ms  ({card})")
     tflop = layer_flops(det, lambda: det.im_detect_batch(images, hws, scales)) / 1e12
-    print(f"{model_type} conv + linear work {tflop:.4f} TFLOP per batch: "
+    print(f"{path} conv + linear work {tflop:.4f} TFLOP per batch: "
           f"{tflop / batch_ms * 1e3:.2f} TFLOP/s over the whole call, "
-          f"{tflop / batch_ms * 1e3 / (F32_FLOP_PER_S / 1e12):.3f} of the f32 peak  ({card})")
-    stage_breakdown(det, images, hws, card)
-    device_profile(lambda: det.im_detect_batch(images, hws, scales), card)
-    print(f"{model_type} peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+          f"{tflop / batch_ms * 1e3 / (peak_flop_per_s(det) / 1e12):.3f} of the {dtype} peak"
           f"  ({card})")
+    stages = stage_breakdown(det, images, hws, card)
+    idle = device_profile(lambda: det.im_detect_batch(images, hws, scales), card)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{path} peak device memory {peak:.2f} GiB  ({card})")
+    figures = dict(batch_ms=batch_ms, predict_ms=predict_ms, stages=stages, idle=idle, peak=peak)
+    if bf16:
+        compare_backbone(det, dict(cfg, tpu_compute_dtype="float32"), images, card)
+        print(f"{path} against {model_type} float32 (this run): im_detect_batch "
+              f"{batch_ms:.2f} vs {f32['batch_ms']:.2f} ms ({f32['batch_ms'] / batch_ms:.2f}x), "
+              f"predict {predict_ms:.2f} vs {f32['predict_ms']:.2f} ms, peak "
+              f"{peak:.2f} vs {f32['peak']:.2f} GiB; stages " + ", ".join(
+                  f"{k} {v:.2f} vs {f32['stages'][k]:.2f} ms" for k, v in stages.items())
+              + f"  ({card})")
     del det
     torch.cuda.empty_cache()
-    return launches
+    return launches, figures
+
+
+def compare_backbone(det, cfg32, images, card):
+    """The bf16 detector's backbone output (C4 features; FPN p2..p6) against
+    the float32 detector of the same seed on the same batch:
+    rel = |bf16 - f32| / (|f32| + 1), rel.mean() < 0.05 (tests/test_bf16.py)."""
+    det32 = model_factory(det.model_type, "resnet50", cfg32, device="cuda", seed=0)
+    with torch.inference_mode():
+        if det.model_type == "fpn":
+            got, want = det._backbone_neck_rpn(images)[0], det32._backbone_neck_rpn(images)[0]
+        else:
+            got, want = [det._backbone_rpn(images)[0]], [det32._backbone_rpn(images)[0]]
+    rels = []
+    for a, b in zip(got, want):
+        require(a.dtype == torch.bfloat16 and b.dtype == torch.float32,
+                f"backbone dtypes {a.dtype}, {b.dtype}")
+        rels.append(float(((a.float() - b).abs() / (b.abs() + 1.0)).mean()))
+    require(max(rels) < 0.05, f"{det.model_type} bf16 backbone vs float32: rel.mean() {rels}")
+    print(f"{det.model_type}_bf16 backbone output vs float32 on the same weights and batch: "
+          f"rel.mean() {', '.join(f'{r:.4f}' for r in rels)} (bound 0.05)  ({card})")
+    del det32
 
 
 # ----------------------------------------------------------------- training
@@ -1103,14 +1337,22 @@ TRAIN_CPU_COMMON = dict(rpn_proposal_train_after_nms_sample_number=64, rpn_total
                         rpn_pos_sample_max_number=32, roi_total_sample_number=32,
                         roi_pos_sample_max_number=8, tpu_max_gt_boxes=8)
 # per training step: the RPN NMS, then for FPN K4 + K5 fused or K2 + K3 once
-# per level (Faster R-CNN crops with two matmuls: no RoIAlign kernel)
+# per level (Faster R-CNN crops with two matmuls: no RoIAlign kernel); under
+# bf16 compute the RoIAlign kernels' bf16-plane variants
 PER_STEP = {
     "fpn": {"nms_alive_sorted": 1, "roi_align_multilevel": 1,
             "roi_align_multilevel_backward": 1},
     "fpn_per_level": {"nms_alive_sorted": 1, "roi_align_single_level": 4,
                       "roi_align_single_level_backward": 4},
     "faster_rcnn": {"nms_alive_sorted": 1},
+    "fpn_bf16": {"nms_alive_sorted": 1, "roi_align_multilevel_bf16": 1,
+                 "roi_align_multilevel_backward_bf16": 1},
+    "fpn_per_level_bf16": {"nms_alive_sorted": 1, "roi_align_single_level_bf16": 4,
+                           "roi_align_single_level_backward_bf16": 4},
+    "faster_rcnn_bf16": {"nms_alive_sorted": 1},
 }
+# steps of each bf16 training path (B=1, B=4, FPN per level)
+BF16_STEPS = (6, 3, 2)
 PATH_NAME = {"fpn": "fpn", "faster_rcnn": "frcnn"}
 
 
@@ -1137,16 +1379,60 @@ def grads_close(got, want, tol) -> tuple[float, str]:
     return worst
 
 
-def small_training_step(model_type, small, device, draws, inputs):
+def small_training_step(model_type, small, device, draws, inputs, pinned=None):
     """One loss and backward of a seeded detector on the small input ->
-    (metrics, gradients of the trainable tensors on the host)."""
+    (metrics, gradients of the trainable tensors on the host). With
+    `pinned` (a dict), the detector's training proposals go into it, or come
+    from it when it holds them already."""
     det = model_factory(model_type, "resnet50", small, device=device, seed=1)
     with torch.no_grad():
         det.rpn_head.rpn_score_conv.weight.mul_(20.0)
+    if pinned is not None:
+        own = det._proposals
+
+        def proposals(*args, **kwargs):
+            if "rois" not in pinned:
+                pinned["rois"] = tuple(t.cpu() for t in own(*args, **kwargs))
+            return tuple(t.to(device) for t in pinned["rois"])
+
+        det._proposals = proposals
     total, metrics = det.loss_fn(*inputs, TrainDraws(*(t.to(device) for t in draws)))
     total.backward()
     return ({k: float(v.detach()) for k, v in metrics.items()},
             {n: p.grad.cpu() for n, p in det.named_parameters() if p.requires_grad})
+
+
+def bf16_small_step_against_cpu(model_type, small, draws, inputs, card):
+    """The bf16 loss and backward on the card against the port's CPU bf16
+    path, with the CPU step's training proposals given to both (bf16 noise
+    in the RPN deltas may flip a proposal across the RoI IoU threshold, as
+    between the port and JAX, tests/test_torch_bf16.py): losses rtol 2e-2,
+    counts equal, every gradient's cosine with the CPU's > 0.9 and all of
+    them together > 0.99, the bounds of tests/test_torch_bf16.py."""
+    pinned = {}
+    cm, cg = small_training_step(model_type, small, "cpu", draws, inputs, pinned)
+    gm, gg = small_training_step(model_type, small, "cuda", draws, inputs, pinned)
+    for k in cm:
+        ktol = 2e-2 * abs(cm[k]) if k.endswith("loss") else 0.0
+        require(abs(gm[k] - cm[k]) <= ktol, f"{model_type} bf16 training {k}: cuda {gm[k]} vs "
+                f"cpu {cm[k]}")
+    worst, every = (2.0, ""), []
+    for name, w in cg.items():
+        a, b = gg[name].double().flatten(), w.double().flatten()
+        if not a.any() or not b.any():
+            require(not a.any() and not b.any(), f"{model_type} bf16 gradient of {name}")
+            continue
+        cos = float(a @ b / (a.norm() * b.norm()))
+        require(cos > 0.9, f"{model_type} bf16 gradient of {name}: cosine {cos}")
+        worst = min(worst, (cos, name))
+        every.append((a, b))
+    a, b = torch.cat([x for x, _ in every]), torch.cat([y for _, y in every])
+    overall = float(a @ b / (a.norm() * b.norm()))
+    require(overall > 0.99, f"{model_type} bf16 gradients: overall cosine {overall}")
+    print(f"{model_type} bf16 training loss + backward 128x128, cuda vs the port's cpu bf16 "
+          f"path (the cpu step's proposals pinned): losses within rtol 2e-2 (total "
+          f"{gm['total_loss']:.6f} vs {cm['total_loss']:.6f}), counts equal, gradient cosine "
+          f">= {worst[0]:.4f} ({worst[1]}), overall {overall:.5f}  ({card})")
 
 
 def check_training_against_cpu(model_type, cfg, card):
@@ -1172,6 +1458,9 @@ def check_training_against_cpu(model_type, cfg, card):
     else:
         anchors = (128 // small["extractor_stride"]) ** 2 * 3 * len(small["scales"])
     draws = TrainDraws.sample(torch.Generator().manual_seed(5), 1, anchors, 64, 32)
+    if small["tpu_compute_dtype"] == "bfloat16":
+        bf16_small_step_against_cpu(model_type, small, draws, inputs, card)
+        return
     cm, cg = small_training_step(model_type, small, "cpu", draws, inputs)
     require(cm["num_rpn_fg"] > 0, f"{model_type} small step without an RPN foreground: {cm}")
     for cudnn, tol in ((False, GRAD_TOL), (True, CUDNN_GRAD_TOL)):
@@ -1265,11 +1554,12 @@ def train_stages(det, opt, batch, gen, card):
     _, t_opt = timed(opt.step)
     tflop = (3 * fwd - first) / 1e12
     step_ms = t_fwd + t_bwd + t_opt
-    print(f"{det.model_type} train stages, batch {batch[0].shape[0]} at "
+    print(f"{det.model_type} {dtype_name(det)} train stages, batch {batch[0].shape[0]} at "
           f"{tuple(batch[0].shape[1:3])}: forward + proposals + targets {t_fwd:.2f} ms, "
           f"backward {t_bwd:.2f} ms, optimizer {t_opt:.2f} ms; conv + linear work "
           f"{tflop:.4f} TFLOP per step, {tflop / step_ms * 1e3:.2f} TFLOP/s over the step, "
-          f"{tflop / step_ms * 1e3 / (F32_FLOP_PER_S / 1e12):.3f} of the f32 peak  ({card})")
+          f"{tflop / step_ms * 1e3 / (peak_flop_per_s(det) / 1e12):.3f} of the "
+          f"{dtype_name(det)} peak  ({card})")
 
 
 @torch.no_grad()
@@ -1281,7 +1571,7 @@ def calibrate_frozen_bn(det, forward):
     hundreds, and training steps that diverge."""
 
     def hook(bn, inputs):
-        x = inputs[0]
+        x = inputs[0].float()
         bn.moving_mean.copy_(x.mean(dim=(0, 2, 3)))
         bn.moving_variance.copy_(x.var(dim=(0, 2, 3), unbiased=False))
 
@@ -1294,12 +1584,15 @@ def calibrate_frozen_bn(det, forward):
             h.remove()
 
 
-def drive_training(model_type, card):
+def drive_training(model_type, card, dtype="float32"):
     """Training at full width, stock config, seeded random weights: 8 steps
     at B=1 (landscape and portrait interleaved), 3 at B=4 (landscape); FPN
-    also 2 at B=1 with `tpu_roi_align_fused_levels` False. Returns ({path:
-    launch counts}, the B=1 median step ms)."""
-    cfg = dict(config_factory("pascal", model_type))
+    also 2 at B=1 with `tpu_roi_align_fused_levels` False. Under bfloat16
+    compute `BF16_STEPS` of each, parameters and momentum checked float32,
+    and for Faster R-CNN the peak memory of a B=4 step with and without
+    `tpu_remat`. Returns ({path: launch counts}, the B=1 median step ms)."""
+    cfg = dict(config_factory("pascal", model_type), tpu_compute_dtype=dtype)
+    bf16 = dtype == "bfloat16"
     check_training_against_cpu(model_type, cfg, card)
     det = model_factory(model_type, "resnet50", cfg, device="cuda", seed=0)
     opt = make_optimizer(cfg, det)
@@ -1307,9 +1600,10 @@ def drive_training(model_type, card):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.RandomState(0)
     items = make_train_items()
-    b1 = [train_batch([it], cfg, rng) for it in items]
+    n1, n4, n_per_level = BF16_STEPS if bf16 else (len(items), 3, 2)
+    b1 = [train_batch([it], cfg, rng) for it in items[:n1]]
     landscape = [it for it in items if it[0].shape[0] < it[0].shape[1]][:BATCH]
-    b4 = [train_batch(landscape, cfg, rng) for _ in range(3)]
+    b4 = [train_batch(landscape, cfg, rng) for _ in range(n4)]
     if model_type == "fpn":  # conv5 is inside the extractor
         calibrate_frozen_bn(det, lambda: det.extractor(b4[0][0]))
     else:  # the backbone, then the conv5 RoI head on the sampled rois
@@ -1317,10 +1611,12 @@ def drive_training(model_type, card):
         calibrate_frozen_bn(det, lambda: det.loss_fn(*b4[0], calib))
     step(b1[0], gen)  # warm-up: cuDNN algorithm choice, allocator
     step(b4[0], gen)
-    name = PATH_NAME[model_type]
+    suffix = "_bf16" if bf16 else ""
+    name = PATH_NAME[model_type] + suffix
     paths, b1_ms = {}, None
     for path, batches in ((f"{name}_train_b1", b1), (f"{name}_train_b4", b4)):
-        paths[path], ms = train_path(path, step, batches, gen, cfg, PER_STEP[model_type], card)
+        paths[path], ms = train_path(path, step, batches, gen, cfg,
+                                     PER_STEP[model_type + suffix], card)
         b1_ms = ms if b1_ms is None else b1_ms
     for batch in (b1[0], b4[0]):
         train_stages(det, opt, batch, gen, card)
@@ -1328,12 +1624,41 @@ def drive_training(model_type, card):
     if model_type == "fpn":
         det.cfg["tpu_roi_align_fused_levels"] = False
         step(b1[1], gen)  # warm-up of the per-level path
-        paths["fpn_train_per_level"] = train_path("fpn_train_per_level", step, b1[:2], gen, cfg,
-                                                  PER_STEP["fpn_per_level"], card)[0]
+        paths[f"{name}_train_per_level"] = train_path(
+            f"{name}_train_per_level", step, b1[:n_per_level], gen, cfg,
+            PER_STEP["fpn_per_level" + suffix], card)[0]
         device_profile(lambda: step(b1[0], gen), card)
+    if bf16:
+        require({p.dtype for p in det.parameters()} == {torch.float32}
+                and {t.dtype for t in opt.trace.values()} == {torch.float32},
+                f"{name}: parameters or momentum traces are not float32")
+        print(f"{name}: after the steps every parameter ({len(list(det.parameters()))}) and "
+              f"momentum trace ({len(opt.trace)}) is float32")
+        if model_type == "faster_rcnn":
+            remat_peak_memory(det, step, b4[0], gen, card)
     del det, opt, step
     torch.cuda.empty_cache()
     return paths, b1_ms
+
+
+def remat_peak_memory(det, step, batch, gen, card):
+    """Peak device memory and time of one B=4 step without and with
+    `tpu_remat` (the extractor's activations recomputed in the backward)."""
+    out = {}
+    for remat in (False, True):
+        det.cfg["tpu_remat"] = remat
+        step(batch, gen)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        step(batch, gen)
+        torch.cuda.synchronize()
+        out[remat] = ((time.perf_counter() - t) * 1e3, torch.cuda.max_memory_allocated() / 2**30)
+    det.cfg["tpu_remat"] = False
+    print(f"{det.model_type} {dtype_name(det)} one B={batch[0].shape[0]} step at "
+          f"{tuple(batch[0].shape[1:3])}: peak device memory {out[False][1]:.2f} GiB without "
+          f"tpu_remat, {out[True][1]:.2f} GiB with it; step {out[False][0]:.2f} ms and "
+          f"{out[True][0]:.2f} ms  ({card})")
 
 
 # --------------------------------------------------------------- VOC eval
@@ -1658,15 +1983,23 @@ def main() -> int:
     nms = check_nms_kernel(card)
     roi = check_roi_kernel(card)
     train_kernels = check_training_kernels(card, counting)
+    bf16_kernels = {**check_bf16_forward(card), **check_bf16_backward(card)}
     print(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
     requests = make_requests()
-    paths = {m: drive_path(m, requests, card) for m in ("faster_rcnn", "fpn")}
+    paths, served = {}, {}
+    for model_type in ("faster_rcnn", "fpn"):
+        paths[model_type], served[model_type] = drive_path(model_type, requests, card)
+    for model_type in ("faster_rcnn", "fpn"):
+        paths[f"{model_type}_bf16"] = drive_path(model_type, requests, card, "bfloat16",
+                                                 served[model_type])[0]
     print(f"serving phases done at {time.perf_counter() - t_start:.1f} s")
     bare_ms = {}
     for model_type in ("fpn", "faster_rcnn"):
         trained, bare_ms[model_type] = drive_training(model_type, card)
         paths.update(trained)
+    for model_type in ("fpn", "faster_rcnn"):
+        paths.update(drive_training(model_type, card, "bfloat16")[0])
     print(f"training phases done at {time.perf_counter() - t_start:.1f} s")
     paths.update(drive_voc_eval(requests, card))
     print(f"eval phase done at {time.perf_counter() - t_start:.1f} s")
@@ -1676,17 +2009,24 @@ def main() -> int:
             paths.update(drive_trainer(model_type, voc, records, bare_ms[model_type], card))
     print(f"trainer phases done at {time.perf_counter() - t_start:.1f} s")
 
+    per_level_shape = "B=1 N=256 S=14 C=256, one launch per level P2..P5"
+    fused_shape = "B=1 N=256 S=14 C=256, P2..P5 of 640x1024"
     main_cases = {  # kernel -> (its records, the main-path case, the case's shape)
         "nms_alive_sorted": (nms, NMS_MAIN, "[4,6000]->1000 @0.7"),
         "roi_align_multilevel": (roi, "served", "B=4 N=1000 S=14 C=256, P2..P5 of 640x1024"),
         **{k: (train_kernels[k], "train_b1", shape) for k, shape in (
-            ("roi_align_single_level", "B=1 N=256 S=14 C=256, one launch per level P2..P5"),
-            ("roi_align_single_level_backward",
-             "B=1 N=256 S=14 C=256, one launch per level P2..P5"),
-            ("roi_align_multilevel_backward", "B=1 N=256 S=14 C=256, P2..P5 of 640x1024"))},
+            ("roi_align_single_level", per_level_shape),
+            ("roi_align_single_level_backward", per_level_shape),
+            ("roi_align_multilevel_backward", fused_shape))},
+        "roi_align_multilevel_bf16": (bf16_kernels["roi_align_multilevel_bf16"], "served",
+                                      "B=4 N=1000 S=14 C=256, bf16 P2..P5 of 640x1024"),
+        **{k: (bf16_kernels[k], "train_b1", "bf16 planes, " + shape) for k, shape in (
+            ("roi_align_single_level_bf16", per_level_shape),
+            ("roi_align_single_level_backward_bf16", per_level_shape),
+            ("roi_align_multilevel_backward_bf16", fused_shape))},
     }
     rows = []
-    for name, (kernel, replaces) in KERNELS.items():
+    for name, (kernel, dtype, replaces) in KERNELS.items():
         records, case, shape = main_cases[name]
         rec = records[case]
         row = {
@@ -1694,6 +2034,7 @@ def main() -> int:
             "route": "cuda",
             "source": kernel.source,
             "replaces": replaces,
+            "plane_dtype": dtype,
             "launches": sum(p[name] for p in paths.values()),
             "launches_by_path": {m: p[name] for m, p in paths.items()},
             "shape": shape,
@@ -1704,14 +2045,14 @@ def main() -> int:
             "bound_by": rec["bound_by"],
             "library_ms": None,  # no single PyTorch call computes the same function
         }
-        if name != "nms_alive_sorted":
+        if "near_reference_ms" in rec:
             row["near_reference_ms"] = rec["near_reference_ms"]
             row["near_reference"] = ("autograd backward of torch.nn.functional.grid_sample, one "
-                                     "call per level" if name.endswith("backward") else
+                                     "call per level" if "backward" in name else
                                      "torch.nn.functional.grid_sample, one call per level")
-        if "terms" in rec:
-            row["terms"] = rec["terms"]
-            row["reductions"] = rec["reductions"]
+        for key in ("terms", "reductions", "cast_ms", "float32_planes_ms"):
+            if key in rec:
+                row[key] = rec[key]
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -137,8 +137,7 @@ def test_cli_help(module):
     assert proc.stdout.startswith("usage:")
 
 
-@pytest.mark.parametrize("flags,item", [(["--compute_dtype", "bfloat16"], "ROADMAP item 5"),
-                                        (["--data_type", "coco"], "ROADMAP item 7")])
+@pytest.mark.parametrize("flags,item", [(["--data_type", "coco"], "ROADMAP item 7")])
 def test_train_refuses_what_is_not_ported(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         train_cli.main(["--device", "cpu", "--tf_records_dir", "unused", *flags])

@@ -44,6 +44,7 @@ from tf_eager_object_detection_tpu_torch.ref_import.from_jax import (
 )
 from tf_eager_object_detection_tpu_torch.training.optimizer import make_optimizer
 from tf_eager_object_detection_tpu_torch.training.train_step import make_train_step
+from torch_shared import jax_init
 
 GRAD_TOL = 2e-3
 RPN_SCORE_SCALE = 20.0
@@ -101,12 +102,8 @@ def jax_draws(key, b, a, r, s) -> TrainDraws:
 
 
 @pytest.fixture(scope="module")
-def flat():
-    jdet = jax_factory("fpn", "resnet50", _config())
-    out = {k: np.array(v) for k, v in
-           flatten_dict(jdet.init_params(jax.random.PRNGKey(0)), sep="/").items()}
-    out["rpn_head/rpn_score_conv/kernel"] *= RPN_SCORE_SCALE
-    return out
+def flat(tmp_path_factory):
+    return jax_init(tmp_path_factory, "fpn", RPN_SCORE_SCALE)
 
 
 _JAX, _PORT = {}, {}

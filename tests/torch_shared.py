@@ -28,3 +28,27 @@ def shared(tmp_path_factory, name, compute):
         value = compute()
         path.write_bytes(pickle.dumps(value))
         return value
+
+
+def jax_init(tmp_path_factory, model_type, rpn_score_scale):
+    """The flat JAX `init_params(PRNGKey(0))` of ResNet-50 `model_type` with
+    its RPN score layer scaled by `rpn_score_scale` (so that random-weight
+    proposals separate), once per session. The values depend only on the
+    parameter shapes, which the test files' configs share (21 classes, 9
+    anchors, 256 FPN dims)."""
+
+    def compute():
+        import jax
+        import numpy as np
+        from flax.traverse_util import flatten_dict
+
+        from tf_eager_object_detection_tpu.config.config_factory import config_factory
+        from tf_eager_object_detection_tpu.models.model_factory import model_factory
+
+        jdet = model_factory(model_type, "resnet50", dict(config_factory("pascal", model_type)))
+        flat = {k: np.array(v) for k, v in
+                flatten_dict(jdet.init_params(jax.random.PRNGKey(0)), sep="/").items()}
+        flat["rpn_head/rpn_score_conv/kernel"] *= rpn_score_scale
+        return flat
+
+    return shared(tmp_path_factory, f"jax_init_{model_type}_rpn_x{rpn_score_scale:g}", compute)

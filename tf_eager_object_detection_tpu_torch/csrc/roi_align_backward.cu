@@ -16,6 +16,10 @@
 // (the second tap of a sample on a cell, or a tap past the plane) adds
 // nothing. The gradient planes are zeroed by
 // the caller and have the planes' exact shapes: no window, no padding.
+// They are float32 whatever the planes' dtype: for bfloat16 planes the
+// wrapper rounds them to bfloat16 once the kernel is done (the Pallas VJP
+// accumulates in float32 and casts to the primal dtype; bfloat16 atomics
+// would round every partial sum).
 //
 // What bounds it on this card: at the stock training shape (B=1, N=256,
 // S=14, C=256) it reads 51.4 MB of g and the gradient planes of a 640x1024

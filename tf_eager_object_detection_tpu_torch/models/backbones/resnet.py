@@ -6,6 +6,11 @@ after an explicit (3, 3) zero pad, then a 3x3/2 max pool over a -inf pad of
 1; every BatchNorm frozen. Submodules carry the keras/flax names
 (`conv2_block1_1_conv`, ...) so the weight bridge is a name map. Public
 inputs and outputs are NHWC; the convolutions run in NCHW.
+
+`compute_dtype` is the flax modules' `dtype`: every convolution computes
+in it (bfloat16 stage outputs under bf16 compute). The RoI head averages
+its conv5 output in that dtype, then casts to float32 for its two dense
+layers, as the JAX head does.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from tf_eager_object_detection_tpu_torch.models.layers import FrozenBatchNorm, SameConv2d
+from tf_eager_object_detection_tpu_torch.models.layers import Conv2d, FrozenBatchNorm, SameConv2d
 
 __all__ = ["ResNetBackbone", "ResNetRoiHead", "RESNET_DEPTH_BLOCKS"]
 
@@ -40,23 +45,23 @@ def _bottleneck_forward(mod: nn.Module, x: torch.Tensor, prefix: str, conv_short
 
 
 def _add_bottleneck(mod: nn.Module, prefix: str, in_ch: int, filters: int,
-                    stride: int, conv_shortcut: bool) -> None:
+                    stride: int, conv_shortcut: bool, dtype: torch.dtype) -> None:
     if conv_shortcut:
-        setattr(mod, f"{prefix}_0_conv", SameConv2d(in_ch, 4 * filters, 1, stride))
+        setattr(mod, f"{prefix}_0_conv", SameConv2d(in_ch, 4 * filters, 1, stride, dtype))
         setattr(mod, f"{prefix}_0_bn", FrozenBatchNorm(4 * filters))
     layers = [(in_ch, filters, 1, stride), (filters, filters, 3, 1), (filters, 4 * filters, 1, 1)]
     for i, (cin, cout, k, s) in enumerate(layers, start=1):
-        setattr(mod, f"{prefix}_{i}_conv", SameConv2d(cin, cout, k, s))
+        setattr(mod, f"{prefix}_{i}_conv", SameConv2d(cin, cout, k, s, dtype))
         setattr(mod, f"{prefix}_{i}_bn", FrozenBatchNorm(cout))
 
 
 def _add_stack(mod: nn.Module, plan: list, name: str, in_ch: int, filters: int,
-               blocks: int, stride1: int) -> int:
+               blocks: int, stride1: int, dtype: torch.dtype) -> int:
     """Registers one stack's convs on `mod`, appends (prefix, shortcut) to plan."""
     for i in range(1, blocks + 1):
         prefix = f"{name}_block{i}"
         first = i == 1
-        _add_bottleneck(mod, prefix, in_ch, filters, stride1 if first else 1, first)
+        _add_bottleneck(mod, prefix, in_ch, filters, stride1 if first else 1, first, dtype)
         plan.append((prefix, first))
         in_ch = 4 * filters
     return in_ch
@@ -72,14 +77,14 @@ class ResNetBackbone(nn.Module):
     """
 
     def __init__(self, depth: int = 50, return_stages: Sequence[str] = ("c4",),
-                 include_c5: bool = False):
+                 include_c5: bool = False, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if depth not in RESNET_DEPTH_BLOCKS:
             raise ValueError(f"unknown resnet depth {depth}")
         b3, b4 = RESNET_DEPTH_BLOCKS[depth]
         self.depth = depth
         self.return_stages = tuple(return_stages)
-        self.conv1_conv = nn.Conv2d(3, 64, 7, stride=2, padding=3)
+        self.conv1_conv = Conv2d(3, 64, 7, stride=2, padding=3, compute_dtype=compute_dtype)
         self.conv1_bn = FrozenBatchNorm(64)
         self.pool = nn.MaxPool2d(3, stride=2, padding=1)  # pads with -inf
         self._stages: list = []  # (stage name, its plan)
@@ -90,7 +95,7 @@ class ResNetBackbone(nn.Module):
             stacks.append(("c5", "conv5", 512, 3, 2))
         for stage, name, filters, blocks, stride in stacks:
             plan: list = []
-            ch = _add_stack(self, plan, name, ch, filters, blocks, stride)
+            ch = _add_stack(self, plan, name, ch, filters, blocks, stride, compute_dtype)
             self._stages.append((stage, plan))
         missing = set(self.return_stages) - {s for s, _ in self._stages}
         if missing:
@@ -112,13 +117,14 @@ class ResNetBackbone(nn.Module):
 class ResNetRoiHead(nn.Module):
     """RoI features [N, 7, 7, 1024] NHWC -> (scores [N, C], deltas [N, 4C]).
 
-    conv5 stack at stride 1, global average pool, two dense heads.
+    conv5 stack at stride 1 in `compute_dtype`, global average pool, then
+    two float32 dense heads.
     """
 
-    def __init__(self, num_classes: int = 21):
+    def __init__(self, num_classes: int = 21, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self._plan: list = []
-        _add_stack(self, self._plan, "conv5", 1024, 512, 3, 1)
+        _add_stack(self, self._plan, "conv5", 1024, 512, 3, 1, compute_dtype)
         self.roi_head_score = nn.Linear(2048, num_classes)
         self.roi_head_bboxes = nn.Linear(2048, 4 * num_classes)
 
@@ -126,5 +132,5 @@ class ResNetRoiHead(nn.Module):
         x = x.permute(0, 3, 1, 2).contiguous()
         for prefix, conv_shortcut in self._plan:
             x = _bottleneck_forward(self, x, prefix, conv_shortcut)
-        x = x.mean(dim=(2, 3))
+        x = x.mean(dim=(2, 3)).float()
         return self.roi_head_score(x), self.roi_head_bboxes(x)

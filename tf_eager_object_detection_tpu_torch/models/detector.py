@@ -16,8 +16,15 @@ A subclass builds its modules, calls `_place(seed)`, and defines
 roi_softmax [B, R, C], roi_deltas [B, R, C, 4])` and `min_edge`, the
 smallest box side `predict` keeps.
 
-Serving and training are float32 with TF32 off: on a CUDA device `_place`
-sets `torch.backends.cudnn.allow_tf32` and
+The config's `tpu_compute_dtype` ("float32" or "bfloat16"; anything else
+raises) is the detector's `compute_dtype`, the flax modules' `dtype`: with
+"bfloat16" the backbone, the neck, the RPN's first conv and the RoI heads'
+convolutions and hidden dense layers compute in bfloat16 (see each
+module), while parameters, gradients, momentum, checkpoints and all
+detection geometry (anchors, deltas, proposals, NMS, targets, losses,
+post-processing) stay float32, with no loss scaling. The float32 stages run
+with TF32 off: on a CUDA device `_place` sets
+`torch.backends.cudnn.allow_tf32` and
 `torch.backends.cuda.matmul.allow_tf32` to False for the process. `_place`
 also marks the frozen parameters (`models/freeze.py`). Entry points run on
 the card unless the caller asks for the CPU; asking for CUDA where there is
@@ -34,7 +41,10 @@ import torch
 from torch import nn
 
 from tf_eager_object_detection_tpu_torch.models.freeze import freeze_
-from tf_eager_object_detection_tpu_torch.models.layers import FrozenBatchNorm
+from tf_eager_object_detection_tpu_torch.models.layers import (
+    FrozenBatchNorm,
+    resolve_compute_dtype,
+)
 from tf_eager_object_detection_tpu_torch.ops.losses import cls_loss, smooth_l1_loss
 from tf_eager_object_detection_tpu_torch.ops.prediction import Detections, post_ops_prediction
 from tf_eager_object_detection_tpu_torch.ops.sampling import (
@@ -73,8 +83,7 @@ class ServingDetector(nn.Module):
             raise NotImplementedError(
                 f"backbone {backbone!r} is not ported yet (ROADMAP item 6, other backbones)"
             )
-        if cfg.get("tpu_compute_dtype", "float32") != "float32":
-            raise NotImplementedError("the port serves float32 only; bf16 is a later item")
+        self.compute_dtype = resolve_compute_dtype(cfg.get("tpu_compute_dtype", "float32"))
         self.cfg = cfg
         self.backbone_name = backbone
         self.num_classes = cfg["num_classes"]

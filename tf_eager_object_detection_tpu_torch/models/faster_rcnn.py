@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from tf_eager_object_detection_tpu_torch.core.anchors import (
     generate_anchor_base,
@@ -63,9 +64,10 @@ class FasterRCNNDetector(ServingDetector):
         self.anchor_base = generate_anchor_base(self.stride, cfg["ratios"], cfg["scales"])
         self.roi_max_pooling = cfg["resnet_roi_pooling_max_pooling_flag"]
 
-        self.extractor = ResNetBackbone(RESNET_DEPTHS[backbone])
-        self.rpn_head = RpnHead(1024, self.num_anchors)
-        self.roi_head = ResNetRoiHead(self.num_classes)
+        dt = self.compute_dtype
+        self.extractor = ResNetBackbone(RESNET_DEPTHS[backbone], compute_dtype=dt)
+        self.rpn_head = RpnHead(1024, self.num_anchors, dt)
+        self.roi_head = ResNetRoiHead(self.num_classes, dt)
         self._anchor_cache: dict = {}
         self._place(seed)
 
@@ -84,7 +86,13 @@ class FasterRCNNDetector(ServingDetector):
 
     # ----------------------------------------------------------- shared path
     def _backbone_rpn(self, images: torch.Tensor):
-        feats = self.extractor(images)
+        """-> (feats [B, h, w, 1024] in the compute dtype, score and bbox maps
+        float32). With `tpu_remat`, a training forward keeps no activation
+        of the extractor and recomputes them in the backward."""
+        if self.cfg.get("tpu_remat", False) and torch.is_grad_enabled():
+            feats = checkpoint(self.extractor, images, use_reentrant=False)
+        else:
+            feats = self.extractor(images)
         score_map, bbox_map = self.rpn_head(feats)
         return feats, score_map.float(), bbox_map.float()
 

@@ -15,6 +15,13 @@
 - RoI head: NHWC flatten -> fc1024 -> fc1024 -> score and box heads, with
   no dropout in training either (as in JAX).
 
+Under bfloat16 compute (`tpu_compute_dtype`) the convolutions and fc1 / fc2
+compute in bfloat16 and the rest follows JAX's type promotion: the neck's
+upsample (float32 matrices) and its fused sums are float32 until the next
+3x3 conv, p2..p6 are bfloat16 and go to the RoIAlign kernels as they are
+(the crops are float32), and the RPN maps and the score and box heads are
+float32.
+
 `loss_fn` is the training loss: RPN targets over every anchor and RoI
 targets over the training proposals (both under `torch.no_grad()`, with
 random draws from `ops/sampling.py::TrainDraws`), then the four losses and
@@ -40,7 +47,7 @@ from tf_eager_object_detection_tpu_torch.core.anchors import make_level_anchors,
 from tf_eager_object_detection_tpu_torch.models.backbones.resnet import ResNetBackbone
 from tf_eager_object_detection_tpu_torch.models.detector import RESNET_DEPTHS, ServingDetector
 from tf_eager_object_detection_tpu_torch.models.heads import RpnHead
-from tf_eager_object_detection_tpu_torch.models.layers import SameConv2d
+from tf_eager_object_detection_tpu_torch.models.layers import Conv2d, Linear, SameConv2d
 from tf_eager_object_detection_tpu_torch.ops.region_proposal import region_proposal
 from tf_eager_object_detection_tpu_torch.ops.roi_align import (
     max_pool_2x2_same,
@@ -72,10 +79,11 @@ def _interp_matrix_on(out_size: int, in_size: int, device: torch.device) -> torc
 
 
 def _resize_nchw(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """TF1 bilinear resize of [B, C, H, W]: H contracted first, then W."""
+    """TF1 bilinear resize of [B, C, H, W]: H contracted first, then W; float32
+    (a bfloat16 input is upcast, as float32 matrices promote it in JAX)."""
     wy = _interp_matrix_on(out_h, x.shape[-2], x.device)
     wx = _interp_matrix_on(out_w, x.shape[-1], x.device)
-    return torch.matmul(torch.matmul(wy, x), wx.T)
+    return torch.matmul(torch.matmul(wy, x.float()), wx.T)
 
 
 def resize_bilinear_tf1(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -84,18 +92,21 @@ def resize_bilinear_tf1(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor
 
 
 class ResnetFpnNeck(nn.Module):
-    """(c2, c3, c4, c5) NHWC -> (p2, p3, p4, p5, p6) NHWC; convs run in NCHW."""
+    """(c2, c3, c4, c5) NHWC -> (p2, p3, p4, p5, p6) NHWC; convs run in NCHW
+    and compute in `compute_dtype`; the upsampled and fused maps are float32."""
 
-    def __init__(self, in_channels: Sequence[int] = (256, 512, 1024, 2048), dims: int = 256):
+    def __init__(self, in_channels: Sequence[int] = (256, 512, 1024, 2048), dims: int = 256,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         c2, c3, c4, c5 = in_channels
-        self.build_p5 = nn.Conv2d(c5, dims, 1)
-        self.build_p4_reduce_dims = nn.Conv2d(c4, dims, 1)
-        self.build_p3_reduce_dims = nn.Conv2d(c3, dims, 1)
-        self.build_p2_reduce_dims = nn.Conv2d(c2, dims, 1)
-        self.build_p4 = SameConv2d(dims, dims, 3)
-        self.build_p3 = SameConv2d(dims, dims, 3)
-        self.build_p2 = SameConv2d(dims, dims, 3)
+        dt = compute_dtype
+        self.build_p5 = Conv2d(c5, dims, 1, compute_dtype=dt)
+        self.build_p4_reduce_dims = Conv2d(c4, dims, 1, compute_dtype=dt)
+        self.build_p3_reduce_dims = Conv2d(c3, dims, 1, compute_dtype=dt)
+        self.build_p2_reduce_dims = Conv2d(c2, dims, 1, compute_dtype=dt)
+        self.build_p4 = SameConv2d(dims, dims, 3, compute_dtype=dt)
+        self.build_p3 = SameConv2d(dims, dims, 3, compute_dtype=dt)
+        self.build_p2 = SameConv2d(dims, dims, 3, compute_dtype=dt)
 
     def forward(self, inputs):
         c2, c3, c4, c5 = (c.permute(0, 3, 1, 2) for c in inputs)
@@ -114,19 +125,21 @@ class ResnetFpnNeck(nn.Module):
 
 
 class FpnRoiHead(nn.Module):
-    """[N, 7, 7, C] NHWC -> (scores [N, classes], deltas [N, 4 * classes])."""
+    """[N, 7, 7, C] NHWC -> (scores [N, classes], deltas [N, 4 * classes]):
+    fc1 and fc2 in `compute_dtype`, the score and box heads in float32."""
 
-    def __init__(self, num_classes: int = 21, in_features: int = 7 * 7 * 256):
+    def __init__(self, num_classes: int = 21, in_features: int = 7 * 7 * 256,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, 1024)
-        self.fc2 = nn.Linear(1024, 1024)
+        self.fc1 = Linear(in_features, 1024, compute_dtype)
+        self.fc2 = Linear(1024, 1024, compute_dtype)
         self.roi_head_score = nn.Linear(1024, num_classes)
         self.roi_head_bboxes = nn.Linear(1024, 4 * num_classes)
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         x = x.reshape(x.shape[0], -1)  # NHWC order, as the bridged fc1 expects
         x = torch.relu(self.fc1(x))
-        x = torch.relu(self.fc2(x))
+        x = torch.relu(self.fc2(x)).float()
         return self.roi_head_score(x), self.roi_head_bboxes(x)
 
 
@@ -151,13 +164,15 @@ class FPNDetector(ServingDetector):
         self.num_anchors = len(cfg["ratios"]) * len(cfg["scales"])
         dims = cfg["top_down_dims"]
 
+        dt = self.compute_dtype
         self.extractor = ResNetBackbone(
-            RESNET_DEPTHS[backbone], return_stages=("c2", "c3", "c4", "c5"), include_c5=True
+            RESNET_DEPTHS[backbone], return_stages=("c2", "c3", "c4", "c5"), include_c5=True,
+            compute_dtype=dt,
         )
-        self.neck = ResnetFpnNeck(dims=dims)
-        self.rpn_head = RpnHead(dims, self.num_anchors)
+        self.neck = ResnetFpnNeck(dims=dims, compute_dtype=dt)
+        self.rpn_head = RpnHead(dims, self.num_anchors, dt)
         pool = cfg["roi_pooling_size"]
-        self.roi_head = FpnRoiHead(self.num_classes, pool * pool * dims)
+        self.roi_head = FpnRoiHead(self.num_classes, pool * pool * dims, dt)
         self._anchor_cache: dict = {}
         self._place(seed)
 
@@ -242,7 +257,8 @@ class FPNDetector(ServingDetector):
         return levels.clamp(self.min_level, self.max_level).long()
 
     def _roi_features(self, p_list, rois, roi_valid, image_hw):
-        """Level-assigned RoIAlign of p2..p5, pooled: [B, N, P, P, C]."""
+        """Level-assigned RoIAlign of p2..p5 (in their own dtype), pooled:
+        [B, N, P, P, C] float32."""
         n = self.max_level - self.min_level + 1
         levels = self._roi_levels(rois) - self.min_level
         ih, iw = image_hw[:, 0], image_hw[:, 1]

@@ -1,7 +1,11 @@
 """RPN head (port of `tf_eager_object_detection_tpu/models/heads.py`).
 
 3x3 conv(512, relu) + 1x1 score conv(2A) + 1x1 box conv(4A). Takes and
-returns NHWC maps like the flax head; the convolutions run in NCHW.
+returns NHWC maps like the flax head; the convolutions run in NCHW. The 3x3
+conv computes in `compute_dtype`; the two 1x1 convs have no dtype in the
+flax head, so they compute in float32 on the upcast input and the maps are
+float32 whatever the compute dtype (rounding the logits to bfloat16 would
+reorder the proposals).
 """
 
 from __future__ import annotations
@@ -9,17 +13,18 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tf_eager_object_detection_tpu_torch.models.layers import SameConv2d
+from tf_eager_object_detection_tpu_torch.models.layers import Conv2d, SameConv2d
 
 __all__ = ["RpnHead", "frcnn_score_logits", "reshuffle_frcnn_scores"]
 
 
 class RpnHead(nn.Module):
-    def __init__(self, in_channels: int = 1024, num_anchors: int = 9):
+    def __init__(self, in_channels: int = 1024, num_anchors: int = 9,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.rpn_first_conv = SameConv2d(in_channels, 512, 3)
-        self.rpn_score_conv = nn.Conv2d(512, num_anchors * 2, 1)
-        self.rpn_bbox_conv = nn.Conv2d(512, num_anchors * 4, 1)
+        self.rpn_first_conv = SameConv2d(in_channels, 512, 3, compute_dtype=compute_dtype)
+        self.rpn_score_conv = Conv2d(512, num_anchors * 2, 1)
+        self.rpn_bbox_conv = Conv2d(512, num_anchors * 4, 1)
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """x [B, h, w, C] -> (score [B, h, w, 2A], bbox [B, h, w, 4A])."""

@@ -2,6 +2,15 @@
 
 Modules here take NCHW tensors; the NHWC <-> NCHW change happens at the
 entry and exit of the backbone and the heads.
+
+Compute dtype, as a flax module's `dtype`: `Conv2d`, `SameConv2d` and
+`Linear` keep float32 parameters and cast their input, weight and bias to
+their `compute_dtype` inside `forward`, so a bfloat16 layer returns
+bfloat16 and its parameters' gradients come back float32 through the cast.
+A float32 layer given a bfloat16 input computes in float32 on the exact
+upcast, as flax promotes a layer that has no `dtype`. `FrozenBatchNorm`
+computes its scale and shift in float32 and applies them in the input's
+dtype.
 """
 
 from __future__ import annotations
@@ -12,7 +21,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["FrozenBatchNorm", "SameConv2d"]
+__all__ = ["Conv2d", "FrozenBatchNorm", "Linear", "SameConv2d", "resolve_compute_dtype"]
+
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_compute_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's `tpu_compute_dtype` ("float32" or "bfloat16")."""
+    if name not in _COMPUTE_DTYPES:
+        raise ValueError(f"unknown tpu_compute_dtype {name!r}: expected one of "
+                         f"{sorted(_COMPUTE_DTYPES)}")
+    return _COMPUTE_DTYPES[name]
 
 
 class FrozenBatchNorm(nn.Module):
@@ -32,8 +51,8 @@ class FrozenBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inv = torch.reciprocal(torch.sqrt(self.moving_variance + self.epsilon))
-        scale = self.gamma * inv
-        shift = self.beta - self.moving_mean * self.gamma * inv
+        scale = (self.gamma * inv).to(x.dtype)
+        shift = (self.beta - self.moving_mean * self.gamma * inv).to(x.dtype)
         return x * scale[:, None, None] + shift[:, None, None]
 
 
@@ -44,21 +63,54 @@ def _same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-class SameConv2d(nn.Conv2d):
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d (fixed padding) computing in `compute_dtype`."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=padding)
+        self.compute_dtype = compute_dtype
+
+    def _cast(self, x: torch.Tensor):
+        d = self.compute_dtype
+        return x.to(d), self.weight.to(d), self.bias.to(d)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = self._cast(x)
+        return F.conv2d(x, w, b, self.stride, self.padding)
+
+
+class SameConv2d(Conv2d):
     """Conv2d with TF 'SAME' padding, computed from the input size.
 
     Symmetric padding goes to the convolution itself; an asymmetric one (odd
     extents at stride 2, extra on the bottom/right) is padded explicitly.
     """
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1):
-        super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=0)
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = self._cast(x)
         (kh, kw), (sh, sw) = self.kernel_size, self.stride
         top, bottom = _same_padding(x.shape[-2], kh, sh)
         left, right = _same_padding(x.shape[-1], kw, sw)
         if top == bottom and left == right:
-            return F.conv2d(x, self.weight, self.bias, self.stride, (top, left))
+            return F.conv2d(x, w, b, self.stride, (top, left))
         x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, self.weight, self.bias, self.stride)
+        return F.conv2d(x, w, b, self.stride)
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in `compute_dtype`."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))

@@ -59,7 +59,8 @@ class CudaKernel:
     function (`entry`, returning a cudaError_t as int) and its ctypes
     argument types, and the function that names an error code. `launch`
     calls the entry point, raises if it returns an error, and otherwise
-    counts one launch.
+    counts one launch, in `launches` and under its variant (the dtype of the
+    data it ran on, "float32" or "bfloat16") in `launches_by_dtype`.
     """
 
     name: str
@@ -72,6 +73,11 @@ class CudaKernel:
         self._lib = None
         self.build_info: dict | None = None
         self.launches = 0
+        self.launches_by_dtype: dict[str, int] = {}
+
+    def reset_launches(self) -> None:
+        self.launches = 0
+        self.launches_by_dtype = {}
 
     @property
     def source(self) -> str:
@@ -91,13 +97,16 @@ class CudaKernel:
             self._lib, self.build_info = lib, info
         return self.build_info
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, variant="float32") -> None:
+        """One launch on `args`; `variant` a dtype name or a torch dtype."""
         self.load()
         err = getattr(self._lib, self.entry)(*args)
         if err != 0:
             msg = getattr(self._lib, self.error_fn)(err).decode()
             raise RuntimeError(f"{self.name} kernel launch failed: {msg}")
         self.launches += 1
+        key = str(variant).removeprefix("torch.")
+        self.launches_by_dtype[key] = self.launches_by_dtype.get(key, 0) + 1
 
 
 def build_library(name: str, sources: list[str]) -> tuple[ctypes.CDLL, dict]:

@@ -10,9 +10,14 @@ launches on PyTorch's current stream, builds its library on first use
 and counts its own launches in `.launches`. They take CUDA tensors only; the
 plain PyTorch versions live beside their callers in `ops/roi_align.py`.
 Where an image's last valid cell lies past a plane, a tap on a cell past
-the plane weighs 0, as in the plain version. The forward moves 16-byte float4
-units where `vectorizable` holds and single channels otherwise: a plane view
-that is contiguous but not 16-byte aligned is taken, on the scalar path.
+the plane weighs 0, as in the plain version. The forward moves 16-byte
+units (4 float32 or 8 bfloat16 channels) where `vectorizable` holds and
+single channels otherwise: a plane view that is contiguous but not 16-byte
+aligned is taken, on the scalar path.
+
+Planes are float32 or bfloat16, one dtype for all of them; rois and the
+output are float32. The wrappers count launches by plane dtype as well
+(`launches_by_dtype`), so that a run shows which variant its path took.
 """
 
 from __future__ import annotations
@@ -24,7 +29,10 @@ import torch
 
 from tf_eager_object_detection_tpu_torch.ops.kernels.build import CudaKernel, device_and_stream
 
-__all__ = ["CudaRoiAlign", "ROI_ALIGN_KERNEL", "ROI_ALIGN_SINGLE_KERNEL", "vectorizable"]
+__all__ = ["CudaRoiAlign", "PLANE_DTYPES", "ROI_ALIGN_KERNEL", "ROI_ALIGN_SINGLE_KERNEL",
+           "vectorizable"]
+
+PLANE_DTYPES = (torch.float32, torch.bfloat16)  # the planes the kernels take
 
 _MAX_LEVELS = 8  # kMaxLevels of the source
 _MAX_CROP = 64  # kMaxCrop: shared-memory coordinate slots per axis
@@ -55,11 +63,13 @@ _ARGS_TAIL = (
 
 
 def vectorizable(p_list: Sequence[torch.Tensor], out: torch.Tensor) -> bool:
-    """Whether a RoIAlign kernel moves 16-byte float4 units: C % 4 == 0 and
-    every plane and `out` 16-byte aligned (else it takes its scalar path).
-    The forward passes its planes and output, the backward its gradient
-    planes and output gradient."""
-    return out.shape[-1] % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (*p_list, out))
+    """Whether a RoIAlign kernel moves 16-byte units: C a multiple of the
+    channels a unit holds (4 float32, 8 bfloat16, by the planes' dtype, or
+    `out`'s without planes) and every plane and `out` 16-byte aligned (else
+    it takes its scalar path). The forward passes its planes and output,
+    the backward its gradient planes and output gradient."""
+    width = 16 // (p_list[0] if len(p_list) else out).element_size()
+    return out.shape[-1] % width == 0 and all(t.data_ptr() % 16 == 0 for t in (*p_list, out))
 
 
 class CudaRoiAlign(CudaKernel):
@@ -70,7 +80,8 @@ class CudaRoiAlign(CudaKernel):
     sources = ("roi_align.cu", "roi_align_common.cuh")
     entry = "roi_align_multilevel_cuda"
     error_fn = "roi_align_error_string"
-    argtypes = (*_ARGS_HEAD, ctypes.c_int, *_ARGS_TAIL)  # vec: 1 for the float4 path
+    # vec: 1 for the 16-byte path; bf16: 1 for bfloat16 planes
+    argtypes = (*_ARGS_HEAD, ctypes.c_int, ctypes.c_int, *_ARGS_TAIL)
 
     @staticmethod
     def _check(p_list, rois, levels, valid, image_height, image_width, crop_size, strides):
@@ -78,8 +89,9 @@ class CudaRoiAlign(CudaKernel):
         tensors = [*p_list, rois, levels, valid, image_height, image_width]
         if not all(isinstance(t, torch.Tensor) for t in tensors):
             raise TypeError("CUDA RoIAlign takes tensors")
-        want = [torch.float32] * (len(p_list) + 1) + [torch.int64, torch.bool,
-                                                      torch.float32, torch.float32]
+        plane = p_list[0].dtype if p_list and p_list[0].dtype in PLANE_DTYPES else torch.float32
+        want = [plane] * len(p_list) + [torch.float32, torch.int64, torch.bool,
+                                        torch.float32, torch.float32]
         got = [t.dtype for t in tensors]
         if got != want:
             raise TypeError(f"CUDA RoIAlign takes dtypes {want}, got {got}")
@@ -113,9 +125,10 @@ class CudaRoiAlign(CudaKernel):
             raise ValueError("CUDA RoIAlign takes contiguous tensors")
 
     def _launch(self, p_list, rois, levels, valid, image_height, image_width, crop_size,
-                strides, out, *flags) -> None:
+                strides, out, *flags, variant: torch.dtype) -> None:
         """Launches on checked arguments, `flags` after the crop size and `out`
-        as the last data pointer."""
+        as the last data pointer; counts one launch of `variant`, the planes'
+        dtype."""
         b, n, _ = rois.shape
         nl = len(p_list)
         self.launch(
@@ -136,6 +149,7 @@ class CudaRoiAlign(CudaKernel):
             *flags,
             out.data_ptr(),
             *device_and_stream(rois.device),
+            variant=variant,
         )
 
     def __call__(
@@ -149,16 +163,18 @@ class CudaRoiAlign(CudaKernel):
         crop_size: int,
         strides: Sequence[int],
     ) -> torch.Tensor:
-        """p_list: per-level [B, H_l, W_l, C] f32; rois [B, N, 4] f32 xyxy pixels;
-        levels [B, N] int64; valid [B, N] bool; image_height/width [B] f32
-        -> [B, N, S, S, C] f32."""
+        """p_list: per-level [B, H_l, W_l, C] f32 or bf16 (one dtype); rois
+        [B, N, 4] f32 xyxy pixels; levels [B, N] int64; valid [B, N] bool;
+        image_height/width [B] f32 -> [B, N, S, S, C] f32."""
         p_list = list(p_list)
         self._check(p_list, rois, levels, valid, image_height, image_width, crop_size, strides)
         b, n, _ = rois.shape
         out = torch.empty((b, n, crop_size, crop_size, p_list[0].shape[-1]),
                           dtype=torch.float32, device=rois.device)
+        dtype = p_list[0].dtype
         self._launch(p_list, rois, levels, valid, image_height, image_width, crop_size, strides,
-                     out, int(vectorizable(p_list, out)))
+                     out, int(vectorizable(p_list, out)), int(dtype == torch.bfloat16),
+                     variant=dtype)
         return out
 
 

@@ -17,6 +17,13 @@ masks, as in JAX). A CUDA tensor goes to the hand-written kernels behind a
 `torch.autograd.Function` (`csrc/roi_align.cu` forward, K4 / K2;
 `csrc/roi_align_backward.cu` backward, K5 / K3), a CPU tensor to the plain
 PyTorch versions (`*_reference`), whose gradients are autograd's.
+
+Planes are float32 or bfloat16 (one dtype for all of them), as the Pallas
+kernels take them. The crops are float32 either way: a bfloat16 plane is
+widened exactly, so its crops equal those of the float32 copy of the plane
+bit for bit. The plane gradients are summed in float32 and come back in
+the planes' dtype, rounded once at the end (the Pallas VJP's cast to the
+primal dtype).
 """
 
 from __future__ import annotations
@@ -81,7 +88,8 @@ def _interp_weights(lo: torch.Tensor, hi: torch.Tensor, size: int, crop: int) ->
 
 
 def _crop(features: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
-    """features [B, H, W, C], wy [B, N, S, H], wx [B, N, S, W] -> [B, N, S, S, C]."""
+    """features [B, H, W, C], wy [B, N, S, H], wx [B, N, S, W] -> [B, N, S, S, C]
+    float32 (features of another dtype are upcast first)."""
     b, h, w, c = features.shape
     n, s = wy.shape[1], wy.shape[2]
     feat = features.float().reshape(b, h, w * c)
@@ -215,6 +223,7 @@ def roi_align_multilevel_reference(
     p_list: per-level [B, H_l, W_l, C] padded-bucket planes; rois [B, N, 4]
     xyxy pixels; levels [B, N] int index into p_list; valid [B, N] bool;
     image_height/width [B] valid image extent; strides: per-level strides.
+    Planes may be float32 or bfloat16 (upcast exactly).
     Returns [B, N, S, S, C] float32 before any pooling: the sum over levels
     of the level-masked, valid-masked crops, each sampled exactly (no window)
     with `level_sample_coords`. A roi whose level matches no plane, or that
@@ -247,14 +256,16 @@ def roi_align_multilevel_reference_backward(
 ) -> list[torch.Tensor]:
     """Plain version of the fused-pyramid backward (TPU kernel `_ml_bwd_kernel`):
     the gradient of `roi_align_multilevel_reference` with respect to each
-    plane for the output gradient `grad` [B, N, S, S, C], by autograd. Only
-    the planes' shapes matter (the function is linear in them)."""
+    plane for the output gradient `grad` [B, N, S, S, C], by autograd, summed
+    in float32 and returned in each plane's dtype. Only the planes' shapes
+    and dtypes matter (the function is linear in them)."""
     with torch.enable_grad():
         planes = [p.detach().float().requires_grad_() for p in p_list]
         out = roi_align_multilevel_reference(
             planes, rois, levels, valid, image_height, image_width, crop_size, strides
         )
-        return list(torch.autograd.grad(out, planes, grad))
+        grads = torch.autograd.grad(out, planes, grad)
+        return [d.to(p.dtype) for d, p in zip(grads, p_list)]
 
 
 def roi_align_single_level_reference(
@@ -276,7 +287,8 @@ def roi_align_single_level_reference(
 
 
 class RoIAlignMultilevel(torch.autograd.Function):
-    """K4 forward, K5 backward; the gradient goes to the planes only.
+    """K4 forward, K5 backward; the gradient goes to the planes only, in
+    their dtype.
 
     apply(rois, levels, valid, image_height, image_width, crop_size, strides,
     *p_list) on CUDA tensors in the kernels' dtypes and layout.
@@ -287,18 +299,20 @@ class RoIAlignMultilevel(torch.autograd.Function):
         ctx.save_for_backward(rois, levels, valid, image_height, image_width)
         ctx.crop_size, ctx.strides = crop_size, tuple(strides)
         ctx.shapes = [tuple(p.shape) for p in p_list]
+        ctx.plane_dtype = p_list[0].dtype
         return ROI_ALIGN_KERNEL(list(p_list), rois, levels, valid, image_height, image_width,
                                 crop_size, strides)
 
     @staticmethod
     def backward(ctx, grad):
         dfs = ROI_ALIGN_BACKWARD_KERNEL(grad.contiguous(), ctx.shapes, *ctx.saved_tensors,
-                                        ctx.crop_size, ctx.strides)
+                                        ctx.crop_size, ctx.strides, ctx.plane_dtype)
         return (None,) * 7 + tuple(dfs)
 
 
 class RoIAlignSingleLevel(torch.autograd.Function):
-    """K2 forward, K3 backward; the gradient goes to the features only.
+    """K2 forward, K3 backward; the gradient goes to the features only, in
+    their dtype.
 
     apply(features, rois, active, image_height, image_width, crop_size,
     level_stride) on CUDA tensors in the kernels' dtypes and layout.
@@ -310,13 +324,15 @@ class RoIAlignSingleLevel(torch.autograd.Function):
         ctx.save_for_backward(rois, levels, active, image_height, image_width)
         ctx.crop_size, ctx.strides = crop_size, (level_stride,)
         ctx.shape = tuple(features.shape)
+        ctx.plane_dtype = features.dtype
         return ROI_ALIGN_SINGLE_KERNEL([features], rois, levels, active, image_height,
                                        image_width, crop_size, ctx.strides)
 
     @staticmethod
     def backward(ctx, grad):
         (df,) = ROI_ALIGN_SINGLE_BACKWARD_KERNEL(grad.contiguous(), [ctx.shape],
-                                                 *ctx.saved_tensors, ctx.crop_size, ctx.strides)
+                                                 *ctx.saved_tensors, ctx.crop_size, ctx.strides,
+                                                 ctx.plane_dtype)
         return (df,) + (None,) * 6
 
 
@@ -332,16 +348,17 @@ def roi_align_multilevel(
 ) -> torch.Tensor:
     """Fused-pyramid RoIAlign -> [B, N, S, S, C] float32 (see the reference).
 
-    CUDA tensors launch the kernels (and raise if one fails); CPU tensors
-    take `roi_align_multilevel_reference`. Either way no gradient reaches
-    the rois, as in JAX (`stop_gradient`).
+    CUDA tensors launch the kernels (and raise if one fails) on the planes
+    as they are, float32 or bfloat16; CPU tensors take
+    `roi_align_multilevel_reference`. Either way no gradient reaches the
+    rois, as in JAX (`stop_gradient`).
     """
     if rois.device.type == "cuda":
         return RoIAlignMultilevel.apply(
             rois.detach().float().contiguous(), levels.long().contiguous(),
             valid.bool().contiguous(), image_height.float().contiguous(),
             image_width.float().contiguous(), crop_size, tuple(strides),
-            *[p.float().contiguous() for p in p_list],
+            *[p.contiguous() for p in p_list],
         )
     if rois.device.type == "cpu":
         return roi_align_multilevel_reference(
@@ -365,7 +382,7 @@ def roi_align_single_level(
     `roi_align_single_level_reference`."""
     if rois.device.type == "cuda":
         return RoIAlignSingleLevel.apply(
-            features.float().contiguous(), rois.detach().float().contiguous(),
+            features.contiguous(), rois.detach().float().contiguous(),
             active.bool().contiguous(), image_height.float().contiguous(),
             image_width.float().contiguous(), crop_size, int(level_stride),
         )

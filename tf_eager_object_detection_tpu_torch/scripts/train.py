@@ -4,9 +4,10 @@
         --backbone resnet50 --data_type pascal --tf_records_dir /data/tfrecords \
         --logs_dir /tmp/logs --epochs 14
 
-Runs on the card unless `--device cpu` is given. Not ported yet:
-`--data_parallel`, `--multihost` and `--spatial_partition` (ROADMAP item 8),
-`--backbone_weights` (item 9); `--compute_dtype bfloat16` raises (item 5),
+Runs on the card unless `--device cpu` is given. `--compute_dtype bfloat16`
+trains with bfloat16 compute (parameters, momentum and checkpoints stay
+float32). Not ported yet: `--data_parallel`, `--multihost` and
+`--spatial_partition` (ROADMAP item 8), `--backbone_weights` (item 9);
 `--data_type coco` raises (item 7).
 """
 
@@ -35,7 +36,7 @@ def parse_args(argv=None):
     p.add_argument("--saving_every_n_steps", type=int, default=5000)
     p.add_argument("--preprocessing_type", default="caffe", choices=["caffe", "tf"])
     p.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"],
-                   help="override the config's tpu_compute_dtype (the port trains float32)")
+                   help="override the config's tpu_compute_dtype")
     p.add_argument("--learning_rate", type=float, default=None,
                    help="override the initial learning rate (later ones scale with it)")
     p.add_argument("--seed", type=int, default=0)
@@ -50,9 +51,6 @@ def main(argv=None):
     if args.data_type == "coco":
         raise NotImplementedError("--data_type coco: the COCO data path is not ported yet "
                                   "(ROADMAP item 7)")
-    if args.compute_dtype == "bfloat16":
-        raise NotImplementedError("--compute_dtype bfloat16: the port trains float32 only; "
-                                  "bf16 is ROADMAP item 5")
     from tf_eager_object_detection_tpu_torch.config.config_factory import (
         apply_config_overrides,
         config_factory,

@@ -228,6 +228,8 @@ def cmd_train(args):
         cmd += ["--learning_rate", str(args.lr)]
     for ov in args.config_override:
         cmd += ["--config_override", ov]
+    if args.compute_dtype:
+        cmd += ["--compute_dtype", args.compute_dtype]
     _run(cmd)
 
 
@@ -280,6 +282,9 @@ def main(argv=None):
     p.add_argument("--config_override", action="append", default=[],
                    help="passed through to the train and eval command lines")
     p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--compute_dtype", default=None, choices=[None, "float32", "bfloat16"],
+                   help="passed to the train command line (evaluation takes it as "
+                        "--config_override tpu_compute_dtype=...)")
     p.add_argument("--eval_batch_size", type=int, default=8)
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
     p.add_argument("--resume", action="store_true",
