@@ -57,7 +57,8 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    accumulators within 1e-5 of sum |g * w|, the returned bf16 planes equal
    to them rounded; graph-replay times (the backward's with the zeroing and
    the cast, and the cast alone) beside the float32 variants', bounds from
-   the bf16 bytes.
+   the bf16 bytes, and `grid_sample` (its autograd backward for K5 / K3) on
+   the same bf16 planes as a near-equivalent reference only.
 6. Faster R-CNN ResNet-50 serving, then FPN ResNet-50 serving, each at full
    width with seeded random weights and the stock Pascal config: 8 synthetic
    VOC-sized requests through `preprocess_eval_image` -> `batched_im_detect`
@@ -71,6 +72,16 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    for FPN, K4's bf16 variant launched as configured, detections finite
    with float32 scores, the backbone output within rel.mean() < 0.05 of the
    float32 detector of the same seed, and the figures beside float32's.
+   Faster R-CNN VGG16 takes the same path in both dtypes (`frcnn_vgg16`,
+   `frcnn_vgg16_bf16`; K1 only, its `predict` against the CPU on
+   caffe-scaled pixels). Then one served batch of 4 (K1 for the batch and
+   for each image, FPN K4 once) of Faster R-CNN and FPN at ResNet-101 and
+   ResNet-152, float32, their frozen BatchNorms set to the batch's
+   statistics first (`frcnn_resnet101`, `fpn_resnet101`, `frcnn_resnet152`,
+   `fpn_resnet152`), and FPN with `tpu_fpn_backbone_style: "slim"`:
+   `predict` and one training loss and backward against the CPU, one
+   served batch (`fpn_slim`) and one B=1 training step (`fpn_slim_train_b1`,
+   K1, K4, K5).
 7. FPN ResNet-50 training, then Faster R-CNN ResNet-50 (C4) training, each
    with the stock config, full width, seeded random weights: one loss +
    backward on the card, with cuDNN off and then on, against the port's CPU
@@ -83,8 +94,12 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    4, K3 4 per level; Faster R-CNN K1 1, its RoI crop being two matmuls);
    losses finite, sample counts as configured; step times, stages, one
    profiled B=1 step of each path, peak memory and conv + linear work per
-   step. Then both with bfloat16 compute (`fpn_bf16_train_b1` and the
-   rest, `BF16_STEPS` steps each): one loss and backward on the card
+   step; the frozen parameters unchanged after the steps. Faster R-CNN
+   VGG16 likewise (`frcnn_vgg16_train_b1`, `_b4`, `VGG16_STEPS`; the
+   draws of the card-vs-CPU step carry the dropout masks; blocks 1-2
+   frozen). Then all three with bfloat16 compute (`fpn_bf16_train_b1` and
+   the rest, `BF16_STEPS` or `VGG16_STEPS` steps each): one loss and
+   backward on the card
    against the port's CPU bf16 path (the CPU step's proposals pinned,
    losses rtol 2e-2, gradient cosines), the bf16 variants of K4 / K5 and
    K2 / K3 launched as configured, parameters and momentum float32 after
@@ -153,6 +168,7 @@ from tf_eager_object_detection_tpu_torch.evaluation.pascal_eval_files import (
     write_voc_detection_files,
 )
 from tf_eager_object_detection_tpu_torch.evaluation.voc_eval import voc_eval
+from tf_eager_object_detection_tpu_torch.models.backbones.vgg import VGG16_HIDDEN
 from tf_eager_object_detection_tpu_torch.models.layers import FrozenBatchNorm
 from tf_eager_object_detection_tpu_torch.models.model_factory import model_factory
 from tf_eager_object_detection_tpu_torch.ops import nms as nms_mod
@@ -596,7 +612,9 @@ def roi_bound(args):
 
 def level_grids(args):
     """Each level's plane in NCHW and the `grid_sample` grid of every roi's
-    sample points on it (align_corners: cell centres at -1 and 1)."""
+    sample points on it (align_corners: cell centres at -1 and 1), in the
+    plane's dtype (`grid_sample` takes one dtype: a bf16 plane gets its
+    sample points rounded to bf16)."""
     planes, rois, levels, valid, ih, iw, crop, strides = args
     out = []
     for plane, s in zip(planes, strides):
@@ -606,7 +624,7 @@ def level_grids(args):
         gy = (ys * (2.0 / (h - 1)) - 1.0)[..., :, None].expand(*ys.shape, crop)
         gx = (xs * (2.0 / (w - 1)) - 1.0)[..., None, :].expand(*xs.shape[:-1], crop, crop)
         grid = torch.stack([gx, gy], -1).reshape(rois.shape[0], -1, crop, 2).contiguous()
-        out.append((plane.permute(0, 3, 1, 2).contiguous(), grid))
+        out.append((plane.permute(0, 3, 1, 2).contiguous(), grid.to(plane.dtype)))
     return out
 
 
@@ -791,7 +809,7 @@ def grid_sample_backward(g, args):
         ins.append(x)
         outs.append(F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
                                   align_corners=True))
-    gs = [g.permute(0, 4, 1, 2, 3).reshape(o.shape).contiguous() for o in outs]
+    gs = [g.permute(0, 4, 1, 2, 3).reshape(o.shape).to(o.dtype).contiguous() for o in outs]
     return lambda: torch.autograd.grad(outs, ins, gs, retain_graph=True)
 
 
@@ -951,14 +969,17 @@ def check_bf16_forward(card):
             bounds = [roi_bound(x) for x in l16]
             rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=sum(b[0] for b in bounds), bound_by=bounds[0][1],
-                       float32_planes_ms=f32_ms, path=path)
+                       float32_planes_ms=f32_ms, path=path,
+                       near_reference_ms=cuda_ms(grid_sample_levels(a16), iters=10))
             record[kname][name] = rec
             b, n = args[1].shape[:2]
             print(f"{kname} {name} [B={b}, N={n}, C={args[0][0].shape[-1]}, {path} path, "
                   f"{len(l16)} launch(es)]: bit-equal to the float32 kernel on the widened planes,"
                   f" max_abs_err {err:.3g} vs plain (atol/rtol 1e-5), kernel {ms:.4f} ms "
                   f"(float32 planes {f32_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})  ({card})")
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), grid_sample x4 levels on the "
+                  f"bf16 planes (near-equivalent reference, not the same function) "
+                  f"{rec['near_reference_ms']:.4f} ms  ({card})")
         del a16, a32
         torch.cuda.empty_cache()
     return record
@@ -1014,18 +1035,22 @@ def check_bf16_backward(card):
     for case, args, make_grad in cases:
         g = make_grad(args)
         b, n = args[1].shape[:2]
+        near_ms = cuda_ms(grid_sample_backward(g, args), iters=5)
         for kname, kernel, args_list in (
                 ("roi_align_multilevel_backward_bf16", ROI_ALIGN_BACKWARD_KERNEL, [args]),
                 ("roi_align_single_level_backward_bf16", ROI_ALIGN_SINGLE_BACKWARD_KERNEL,
                  per_level(args))):
             rec = check_backward_bf16(kernel, g, args_list)
+            rec["near_reference_ms"] = near_ms
             record[kname][case] = rec
             print(f"{kname} {case} [B={b}, N={n}]: bf16 planes = the float32 accumulators "
                   f"rounded; accumulators max_abs_err {rec['max_abs_err']:.3g}, max rel err "
                   f"{rec['max_rel_err']:.3g} of sum|g*w| (tolerance 1e-5); call (zeroing, kernel, "
                   f"cast) {rec['ms']:.4f} ms, of which the cast {rec['cast_ms']:.4f} ms (float32 "
                   f"planes {rec['float32_planes_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms, "
-                  f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})  ({card})")
+                  f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), grid_sample's autograd "
+                  f"backward per level on the bf16 planes (near-equivalent reference) "
+                  f"{near_ms:.4f} ms  ({card})")
         del g
         torch.cuda.empty_cache()
     return record
@@ -1049,25 +1074,33 @@ def serve(det, requests, cfg):
     t0 = time.perf_counter()
     items = (preprocess_eval_image(img, cfg) for img in requests)  # (padded, hw, scale, raw_h, raw_w)
     results, latency, per_bucket = {}, {}, {}
-    for idx, item, (sm, deltas, rois, valid) in batched_im_detect(det, items, BATCH):
-        raw_h, raw_w = item[3], item[4]
+    for idx, item, raw in batched_im_detect(det, items, BATCH):
         bucket = item[0].shape[:2]
         per_bucket[bucket] = per_bucket.get(bucket, 0) + 1
-        dets = post_ops_prediction(
-            sm, deltas, rois, valid, raw_h, raw_w,
-            target_means=tuple(cfg["roi_proposal_means"]),
-            target_stds=tuple(cfg["roi_proposal_stds"]),
-            max_num_per_class=cfg["max_objects_per_class_per_image"],
-            max_num_per_image=cfg["max_objects_per_image"],
-            nms_iou_threshold=cfg["prediction_nms_iou_threshold"],
-            score_threshold=cfg["prediction_score_threshold"],
-            min_edge=10.0,  # the VOC writer's min_size, on raw-image coordinates
-            num_classes=det.num_classes,
-        )
-        results[idx] = (type(dets)(*(t.cpu() for t in dets)), (raw_h, raw_w))
+        results[idx] = post_process(raw, item, cfg, det.num_classes)
         latency[idx] = time.perf_counter() - t0
     batches = sum(-(-n // BATCH) for n in per_bucket.values())
     return results, latency, time.perf_counter() - t0, batches
+
+
+def post_process(raw, item, cfg, num_classes):
+    """One image's `im_detect` outputs (rois on raw-image coordinates) and
+    its preprocessed item -> (Detections on the host, raw hw): the class-
+    batched NMS (K1) of `post_ops_prediction`."""
+    sm, deltas, rois, valid = raw
+    raw_h, raw_w = item[3], item[4]
+    dets = post_ops_prediction(
+        sm, deltas, rois, valid, raw_h, raw_w,
+        target_means=tuple(cfg["roi_proposal_means"]),
+        target_stds=tuple(cfg["roi_proposal_stds"]),
+        max_num_per_class=cfg["max_objects_per_class_per_image"],
+        max_num_per_image=cfg["max_objects_per_image"],
+        nms_iou_threshold=cfg["prediction_nms_iou_threshold"],
+        score_threshold=cfg["prediction_score_threshold"],
+        min_edge=10.0,  # the VOC writer's min_size, on raw-image coordinates
+        num_classes=num_classes,
+    )
+    return type(dets)(*(t.cpu() for t in dets)), (raw_h, raw_w)
 
 
 def check_detections(results, n, slots):
@@ -1098,7 +1131,21 @@ CPU_CHECKS = {
 }
 
 
-def check_against_cpu(model_type, cfg, card):
+# N(0, 1) pixels times this: VGG16's 13 ReLU layers at lecun init shrink a
+# unit input ~90x, so its random-weight RPN scores would tie near 0.5 on
+# unit pixels; caffe-scaled ones (N(0, 50)) separate them
+PIXEL_SCALE = {"vgg16": 50.0}
+
+
+def describe(model_type, backbone="resnet50", cfg=None) -> str:
+    """A path's model: `faster_rcnn`, `faster_rcnn vgg16`, `fpn slim`, ..."""
+    parts = [model_type] + ([backbone] if backbone != "resnet50" else [])
+    if cfg is not None and cfg.get("tpu_fpn_backbone_style", "keras") != "keras":
+        parts.append(cfg["tpu_fpn_backbone_style"])
+    return " ".join(parts)
+
+
+def check_against_cpu(model_type, cfg, card, backbone="resnet50", calibrate=False):
     """predict on the card against the port's CPU path (plain NMS and
     RoIAlign, held against JAX by tests/test_torch_model.py and
     tests/test_torch_fpn.py) on a small input, same seeded weights.
@@ -1111,22 +1158,27 @@ def check_against_cpu(model_type, cfg, card):
     """
     overrides, size, hw, rpn_scale, roi_scale = CPU_CHECKS[model_type]
     small = dict(cfg, max_objects_per_image=10, max_objects_per_class_per_image=10, **overrides)
-    image = np.random.RandomState(1).randn(size, size, 3).astype(np.float32)
+    image = (np.random.RandomState(1).randn(size, size, 3)
+             * PIXEL_SCALE.get(backbone, 1.0)).astype(np.float32)
+    state = calibrated_state(model_type, backbone, small, image[None]) if calibrate else None
     out = []
     for device in ("cuda", "cpu"):
-        det = model_factory(model_type, "resnet50", small, device=device, seed=1)
+        det = model_factory(model_type, backbone, small, device=device, seed=1)
+        if state is not None:
+            det.load_state_dict(state)
         with torch.no_grad():
             det.rpn_head.rpn_score_conv.weight.mul_(rpn_scale)
             det.roi_head.roi_head_score.weight.mul_(roi_scale)
         out.append([t.cpu() for t in det.predict(image, hw)])
     (gb, gl, gs, gv), (cb, cl, cs, cv) = out
+    name = describe(model_type, backbone, cfg)
     require(torch.equal(gv, cv) and torch.equal(gl, cl),
-            f"{model_type} cuda vs cpu: labels or validity differ")
+            f"{name} cuda vs cpu: labels or validity differ")
     box_err = float((gb - cb).abs().max())
     score_err = float((gs - cs).abs().max())
     require(box_err <= 1e-3 and score_err <= 1e-4,
-            f"{model_type} cuda vs cpu: box err {box_err}, score err {score_err}")
-    print(f"{model_type} predict {size}x{size}, cuda vs the port's cpu path: {int(gv.sum())} "
+            f"{name} cuda vs cpu: box err {box_err}, score err {score_err}")
+    print(f"{name} predict {size}x{size}, cuda vs the port's cpu path: {int(gv.sum())} "
           f"detections, labels and validity equal, box err {box_err:.3g} px, score err "
           f"{score_err:.3g}  ({card})")
 
@@ -1158,7 +1210,8 @@ def stage_breakdown(det, images, hw, card):
             _, t_head = timed(lambda: det.roi_head(crops.reshape(-1, *crops.shape[2:])))
             names = ("backbone+rpn", "proposals (incl. NMS)", "roi crop", "roi head")
     times = (t_bb, t_rp, t_crop, t_head)
-    print(f"{det.model_type} {dtype_name(det)} stages, batch {images.shape[0]} at "
+    print(f"{describe(det.model_type, det.backbone_name, det.cfg)} {dtype_name(det)} stages, "
+          f"batch {images.shape[0]} at "
           f"{tuple(images.shape[1:3])}: "
           + ", ".join(f"{n} {t:.2f} ms" for n, t in zip(names, times)) + f"  ({card})")
     return dict(zip(names, times))
@@ -1174,17 +1227,23 @@ def peak_flop_per_s(det) -> float:
     return BF16_FLOP_PER_S if det.compute_dtype == torch.bfloat16 else F32_FLOP_PER_S
 
 
-def layer_flops(det, fn) -> int:
-    """FLOPs (2 per multiply-add) of the Conv2d and Linear layers in one call of `fn`."""
+def layer_flops(det, fn, backward=False) -> int:
+    """FLOPs (2 per multiply-add) of the Conv2d and Linear layers in one call of
+    `fn`; with `backward`, those of its backward too: a layer's forward work
+    again for its weight's gradient if the weight trains, and again for its
+    input's gradient if the input carries one."""
     total = 0
 
     def count(mod, inputs, out):
         nonlocal total
         if isinstance(mod, torch.nn.Conv2d):
             kh, kw = mod.kernel_size
-            total += 2 * out.numel() * (mod.in_channels // mod.groups) * kh * kw
+            work = 2 * out.numel() * (mod.in_channels // mod.groups) * kh * kw
         else:
-            total += 2 * out.numel() * mod.in_features
+            work = 2 * out.numel() * mod.in_features
+        if backward:
+            work *= 1 + mod.weight.requires_grad + inputs[0].requires_grad
+        total += work
 
     handles = [m.register_forward_hook(count) for m in det.modules()
                if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
@@ -1226,7 +1285,8 @@ def device_profile(fn, card, top: int = 8):
     return 1 - busy_ms / wall_ms
 
 
-def drive_path(model_type, requests, card, dtype="float32", f32=None):
+def drive_path(model_type, requests, card, dtype="float32", f32=None, backbone="resnet50",
+               path=None):
     """One model's serving path in `dtype` compute; returns (the kernel
     launches of its run, its figures). Under bfloat16 compute the backbone's
     output is held against the float32 detector of the same seed and the
@@ -1234,8 +1294,8 @@ def drive_path(model_type, requests, card, dtype="float32", f32=None):
     cfg = dict(config_factory("pascal", model_type), tpu_compute_dtype=dtype)
     bf16 = dtype == "bfloat16"
     if not bf16:
-        check_against_cpu(model_type, cfg, card)
-    det = model_factory(model_type, "resnet50", cfg, device="cuda", seed=0)
+        check_against_cpu(model_type, cfg, card, backbone)
+    det = model_factory(model_type, backbone, cfg, device="cuda", seed=0)
     serve(det, requests, cfg)  # warm-up: cuDNN algorithm choice, allocator
     torch.cuda.synchronize()
 
@@ -1256,7 +1316,7 @@ def drive_path(model_type, requests, card, dtype="float32", f32=None):
     expected["nms_alive_sorted"] = batches + len(requests) + 2
     k4 = "roi_align_multilevel_bf16" if bf16 else "roi_align_multilevel"
     expected[k4] = batches + 1 if model_type == "fpn" else 0
-    path = f"{model_type}_bf16" if bf16 else model_type
+    path = path or (f"{model_type}_bf16" if bf16 else model_type)
     print(f"{path} kernel launches in the main path: {launches} (expected {expected}: "
           f"{batches} batches, {len(requests)} per-class NMS, predict)")
     require(launches == expected, f"{path} launches {launches} != expected {expected}")
@@ -1291,7 +1351,8 @@ def drive_path(model_type, requests, card, dtype="float32", f32=None):
     figures = dict(batch_ms=batch_ms, predict_ms=predict_ms, stages=stages, idle=idle, peak=peak)
     if bf16:
         compare_backbone(det, dict(cfg, tpu_compute_dtype="float32"), images, card)
-        print(f"{path} against {model_type} float32 (this run): im_detect_batch "
+        print(f"{path} against {describe(model_type, backbone)} float32 (this run): "
+              f"im_detect_batch "
               f"{batch_ms:.2f} vs {f32['batch_ms']:.2f} ms ({f32['batch_ms'] / batch_ms:.2f}x), "
               f"predict {predict_ms:.2f} vs {f32['predict_ms']:.2f} ms, peak "
               f"{peak:.2f} vs {f32['peak']:.2f} GiB; stages " + ", ".join(
@@ -1303,10 +1364,10 @@ def drive_path(model_type, requests, card, dtype="float32", f32=None):
 
 
 def compare_backbone(det, cfg32, images, card):
-    """The bf16 detector's backbone output (C4 features; FPN p2..p6) against
-    the float32 detector of the same seed on the same batch:
+    """The bf16 detector's backbone output (C4 or VGG16 features; FPN p2..p6)
+    against the float32 detector of the same seed on the same batch:
     rel = |bf16 - f32| / (|f32| + 1), rel.mean() < 0.05 (tests/test_bf16.py)."""
-    det32 = model_factory(det.model_type, "resnet50", cfg32, device="cuda", seed=0)
+    det32 = model_factory(det.model_type, det.backbone_name, cfg32, device="cuda", seed=0)
     with torch.inference_mode():
         if det.model_type == "fpn":
             got, want = det._backbone_neck_rpn(images)[0], det32._backbone_neck_rpn(images)[0]
@@ -1317,8 +1378,9 @@ def compare_backbone(det, cfg32, images, card):
         require(a.dtype == torch.bfloat16 and b.dtype == torch.float32,
                 f"backbone dtypes {a.dtype}, {b.dtype}")
         rels.append(float(((a.float() - b).abs() / (b.abs() + 1.0)).mean()))
-    require(max(rels) < 0.05, f"{det.model_type} bf16 backbone vs float32: rel.mean() {rels}")
-    print(f"{det.model_type}_bf16 backbone output vs float32 on the same weights and batch: "
+    name = describe(det.model_type, det.backbone_name)
+    require(max(rels) < 0.05, f"{name} bf16 backbone vs float32: rel.mean() {rels}")
+    print(f"{name} bf16 backbone output vs float32 on the same weights and batch: "
           f"rel.mean() {', '.join(f'{r:.4f}' for r in rels)} (bound 0.05)  ({card})")
     del det32
 
@@ -1351,8 +1413,10 @@ PER_STEP = {
                            "roi_align_single_level_backward_bf16": 4},
     "faster_rcnn_bf16": {"nms_alive_sorted": 1},
 }
-# steps of each bf16 training path (B=1, B=4, FPN per level)
+# steps of each bf16 training path (B=1, B=4, FPN per level), and of each
+# VGG16 training path, float32 and bf16
 BF16_STEPS = (6, 3, 2)
+VGG16_STEPS = (5, 3, 0)
 PATH_NAME = {"fpn": "fpn", "faster_rcnn": "frcnn"}
 
 
@@ -1379,12 +1443,24 @@ def grads_close(got, want, tol) -> tuple[float, str]:
     return worst
 
 
-def small_training_step(model_type, small, device, draws, inputs, pinned=None):
+def calibrated_state(model_type, backbone, cfg, images):
+    """The state of the seeded detector on the CPU with its frozen
+    BatchNorms set to the statistics of `images` (numpy NHWC), for both
+    sides of a card-vs-CPU check: identical weights on the two devices."""
+    det = model_factory(model_type, backbone, cfg, device="cpu", seed=1)
+    calibrate_frozen_bn(det, lambda: det.extractor(torch.as_tensor(images)))
+    return det.state_dict()
+
+
+def small_training_step(model_type, small, device, draws, inputs, pinned=None,
+                        backbone="resnet50", state=None):
     """One loss and backward of a seeded detector on the small input ->
     (metrics, gradients of the trainable tensors on the host). With
     `pinned` (a dict), the detector's training proposals go into it, or come
-    from it when it holds them already."""
-    det = model_factory(model_type, "resnet50", small, device=device, seed=1)
+    from it when it holds them already; `state` replaces its weights."""
+    det = model_factory(model_type, backbone, small, device=device, seed=1)
+    if state is not None:
+        det.load_state_dict(state)
     with torch.no_grad():
         det.rpn_head.rpn_score_conv.weight.mul_(20.0)
     if pinned is not None:
@@ -1396,13 +1472,13 @@ def small_training_step(model_type, small, device, draws, inputs, pinned=None):
             return tuple(t.to(device) for t in pinned["rois"])
 
         det._proposals = proposals
-    total, metrics = det.loss_fn(*inputs, TrainDraws(*(t.to(device) for t in draws)))
+    total, metrics = det.loss_fn(*inputs, draws.to(device))
     total.backward()
     return ({k: float(v.detach()) for k, v in metrics.items()},
             {n: p.grad.cpu() for n, p in det.named_parameters() if p.requires_grad})
 
 
-def bf16_small_step_against_cpu(model_type, small, draws, inputs, card):
+def bf16_small_step_against_cpu(model_type, small, draws, inputs, card, backbone="resnet50"):
     """The bf16 loss and backward on the card against the port's CPU bf16
     path, with the CPU step's training proposals given to both (bf16 noise
     in the RPN deltas may flip a proposal across the RoI IoU threshold, as
@@ -1410,75 +1486,125 @@ def bf16_small_step_against_cpu(model_type, small, draws, inputs, card):
     counts equal, every gradient's cosine with the CPU's > 0.9 and all of
     them together > 0.99, the bounds of tests/test_torch_bf16.py."""
     pinned = {}
-    cm, cg = small_training_step(model_type, small, "cpu", draws, inputs, pinned)
-    gm, gg = small_training_step(model_type, small, "cuda", draws, inputs, pinned)
+    name = describe(model_type, backbone, small)
+    cm, cg = small_training_step(model_type, small, "cpu", draws, inputs, pinned, backbone)
+    gm, gg = small_training_step(model_type, small, "cuda", draws, inputs, pinned, backbone)
     for k in cm:
         ktol = 2e-2 * abs(cm[k]) if k.endswith("loss") else 0.0
-        require(abs(gm[k] - cm[k]) <= ktol, f"{model_type} bf16 training {k}: cuda {gm[k]} vs "
+        require(abs(gm[k] - cm[k]) <= ktol, f"{name} bf16 training {k}: cuda {gm[k]} vs "
                 f"cpu {cm[k]}")
-    worst, every = (2.0, ""), []
-    for name, w in cg.items():
-        a, b = gg[name].double().flatten(), w.double().flatten()
-        if not a.any() or not b.any():
-            require(not a.any() and not b.any(), f"{model_type} bf16 gradient of {name}")
-            continue
-        cos = float(a @ b / (a.norm() * b.norm()))
-        require(cos > 0.9, f"{model_type} bf16 gradient of {name}: cosine {cos}")
-        worst = min(worst, (cos, name))
-        every.append((a, b))
-    a, b = torch.cat([x for x, _ in every]), torch.cat([y for _, y in every])
-    overall = float(a @ b / (a.norm() * b.norm()))
-    require(overall > 0.99, f"{model_type} bf16 gradients: overall cosine {overall}")
-    print(f"{model_type} bf16 training loss + backward 128x128, cuda vs the port's cpu bf16 "
+    worst, overall = cosines(gg, cg, 0.9, 0.99, f"{name} bf16")
+    print(f"{name} bf16 training loss + backward 128x128, cuda vs the port's cpu bf16 "
           f"path (the cpu step's proposals pinned): losses within rtol 2e-2 (total "
           f"{gm['total_loss']:.6f} vs {cm['total_loss']:.6f}), counts equal, gradient cosine "
           f">= {worst[0]:.4f} ({worst[1]}), overall {overall:.5f}  ({card})")
 
 
-def check_training_against_cpu(model_type, cfg, card):
+def cosines(got, want, each, together, name):
+    """(the lowest cosine of a gradient in `got` with its tensor in `want`
+    and that tensor's name, the cosine of all of them together); raises
+    below `each` or `together`. A tensor that is zero must be zero on both."""
+    worst, every = (2.0, ""), []
+    for tensor, w in want.items():
+        a, b = got[tensor].double().flatten(), w.double().flatten()
+        if not a.any() or not b.any():
+            require(not a.any() and not b.any(), f"{name} gradient of {tensor}")
+            continue
+        cos = float(a @ b / (a.norm() * b.norm()))
+        require(cos > each, f"{name} gradient of {tensor}: cosine {cos}")
+        worst = min(worst, (cos, tensor))
+        every.append((a, b))
+    a, b = torch.cat([x for x, _ in every]), torch.cat([y for _, y in every])
+    overall = float(a @ b / (a.norm() * b.norm()))
+    require(overall > together, f"{name} gradients: overall cosine {overall}")
+    return worst, overall
+
+
+def check_training_against_cpu(model_type, cfg, card, backbone="resnet50"):
     """One training loss and backward on the card against the port's CPU path
     (held against JAX by the CPU training tests) on a 128x128 input, same
     seeded weights and the same draws: losses rtol 1e-4, counts exact, every
     gradient within GRAD_TOL (cuDNN off) or CUDNN_GRAD_TOL (cuDNN on) of its
     tensor's largest value. A RoI gradient that failed to reach the
     backbone would show in its gradients at O(1). The RPN score layer is
-    scaled so that random-weight proposals separate, as in the CPU tests."""
+    scaled so that random-weight proposals separate, as in the CPU tests.
+    VGG16's draws carry the dropout masks, the same on both sides."""
     small = dict(cfg, tpu_image_buckets=[[128, 128]], image_min_size=128, image_max_size=128,
                  **TRAIN_CPU_COMMON, **TRAIN_CPU_CHECK[model_type])
-    rng = np.random.RandomState(3)
-    image = rng.randn(1, 128, 128, 3).astype(np.float32)
-    hw = np.asarray([[120, 124]], np.int32)
-    gt = np.zeros((1, 8, 4), np.float32)
-    gt[0, :3] = [[10, 12, 60, 70], [40, 30, 118, 100], [5, 50, 50, 110]]
-    gt_mask = np.arange(8)[None] < 3
-    gt_labels = np.asarray([[3, 7, 12, 0, 0, 0, 0, 0]], np.int32)
-    inputs = (image, hw, gt, gt_mask, gt_labels)
+    inputs = small_train_inputs(PIXEL_SCALE.get(backbone, 1.0))
     if model_type == "fpn":
         anchors = 3 * sum((-(-128 // s)) ** 2 for s in small["anchor_stride_list"])
     else:
         anchors = (128 // small["extractor_stride"]) ** 2 * 3 * len(small["scales"])
-    draws = TrainDraws.sample(torch.Generator().manual_seed(5), 1, anchors, 64, 32)
+    dropout = (1.0 - (1.0 - cfg["roi_head_keep_dropout_rate"]), VGG16_HIDDEN) \
+        if backbone == "vgg16" else None
+    draws = TrainDraws.sample(torch.Generator().manual_seed(5), 1, anchors, 64, 32, dropout)
     if small["tpu_compute_dtype"] == "bfloat16":
-        bf16_small_step_against_cpu(model_type, small, draws, inputs, card)
+        bf16_small_step_against_cpu(model_type, small, draws, inputs, card, backbone)
         return
-    cm, cg = small_training_step(model_type, small, "cpu", draws, inputs)
-    require(cm["num_rpn_fg"] > 0, f"{model_type} small step without an RPN foreground: {cm}")
+    path = describe(model_type, backbone, cfg)
+    cm, cg = small_training_step(model_type, small, "cpu", draws, inputs, backbone=backbone)
+    require(cm["num_rpn_fg"] > 0, f"{path} small step without an RPN foreground: {cm}")
     for cudnn, tol in ((False, GRAD_TOL), (True, CUDNN_GRAD_TOL)):
         torch.backends.cudnn.enabled = cudnn
         try:
-            gm, gg = small_training_step(model_type, small, "cuda", draws, inputs)
+            gm, gg = small_training_step(model_type, small, "cuda", draws, inputs,
+                                         backbone=backbone)
         finally:
             torch.backends.cudnn.enabled = True
         for k in cm:
             ktol = 1e-4 * abs(cm[k]) if k.endswith("loss") else 0.0
             require(abs(gm[k] - cm[k]) <= ktol,
-                    f"{model_type} training {k}: cuda {gm[k]} vs cpu {cm[k]}")
+                    f"{path} training {k}: cuda {gm[k]} vs cpu {cm[k]}")
         worst, name = grads_close(gg, cg, tol)
-        print(f"{model_type} training loss + backward 128x128, cuda (cuDNN "
+        print(f"{path} training loss + backward 128x128, cuda (cuDNN "
               f"{'on' if cudnn else 'off'}) vs the port's cpu path: losses within rtol 1e-4 "
               f"(total {gm['total_loss']:.6f} vs {cm['total_loss']:.6f}), counts equal, "
               f"{len(cg)} gradients within {worst:.3g} of their largest value ({name}; "
               f"tolerance {tol})  ({card})")
+
+
+def slim_step_against_cpu(cfg, card):
+    """One slim FPN training loss and backward on the card (cuDNN on)
+    against the port's CPU path at 128x128, both from the CPU's calibrated
+    state (`calibrated_state`) and the CPU step's proposals. With its frozen
+    BatchNorms set to the batch's statistics the random slim network's
+    gradients are ill-conditioned at this size: on the CPU, a 1e-6 relative
+    change of its BatchNorm variances moves a conv4 gradient by 25% of its
+    largest value (ReLU inputs of standardized activations sit within
+    rounding of 0), while every gradient's cosine with the unchanged one
+    stays >= 0.9993. So: losses rtol 1e-4, counts equal, every gradient's
+    cosine with the CPU's > 0.99 and all of them together > 0.999."""
+    small = dict(cfg, tpu_image_buckets=[[128, 128]], image_min_size=128, image_max_size=128,
+                 **TRAIN_CPU_COMMON, **TRAIN_CPU_CHECK["fpn"])
+    inputs = small_train_inputs(1.0)
+    anchors = 3 * sum((-(-128 // s)) ** 2 for s in small["anchor_stride_list"])
+    draws = TrainDraws.sample(torch.Generator().manual_seed(5), 1, anchors, 64, 32)
+    state = calibrated_state("fpn", "resnet50", small, inputs[0])
+    pinned = {}
+    cm, cg = small_training_step("fpn", small, "cpu", draws, inputs, pinned, state=state)
+    gm, gg = small_training_step("fpn", small, "cuda", draws, inputs, pinned, state=state)
+    require(cm["num_rpn_fg"] > 0 and cm["num_roi_fg"] > 0, f"fpn slim small step counts {cm}")
+    for k in cm:
+        ktol = 1e-4 * abs(cm[k]) if k.endswith("loss") else 0.0
+        require(abs(gm[k] - cm[k]) <= ktol, f"fpn slim training {k}: cuda {gm[k]} vs cpu {cm[k]}")
+    worst, overall = cosines(gg, cg, 0.99, 0.999, "fpn slim")
+    print(f"fpn slim training loss + backward 128x128, cuda vs the port's cpu path (calibrated "
+          f"state and the cpu step's proposals on both): losses within rtol 1e-4 (total "
+          f"{gm['total_loss']:.6f} vs {cm['total_loss']:.6f}), counts equal, gradient cosine "
+          f">= {worst[0]:.6f} ({worst[1]}), overall {overall:.7f}  ({card})")
+
+
+def small_train_inputs(pixel_scale):
+    """The one-image 128x128 training batch of the card-vs-CPU checks."""
+    rng = np.random.RandomState(3)
+    image = (rng.randn(1, 128, 128, 3) * pixel_scale).astype(np.float32)
+    hw = np.asarray([[120, 124]], np.int32)
+    gt = np.zeros((1, 8, 4), np.float32)
+    gt[0, :3] = [[10, 12, 60, 70], [40, 30, 118, 100], [5, 50, 50, 110]]
+    gt_mask = np.arange(8)[None] < 3
+    gt_labels = np.asarray([[3, 7, 12, 0, 0, 0, 0, 0]], np.int32)
+    return image, hw, gt, gt_mask, gt_labels
 
 
 def make_train_items(seed: int = 0):
@@ -1543,18 +1669,20 @@ def train_path(name, step, batches, gen, cfg, per_step, card):
 
 def train_stages(det, opt, batch, gen, card):
     """Host-clock time of each stage of one step, synchronised between stages,
-    and the step's conv + linear work (forward counted by hooks; the backward
-    is twice the forward less conv1's input gradient, which no step needs)."""
-    fwd = layer_flops(det, lambda: det.loss_fn(*batch, gen))
-    conv1 = det.extractor.conv1_conv
-    first = layer_flops(conv1, lambda: conv1(batch[0].permute(0, 3, 1, 2)))
+    and the step's conv + linear work: each layer's forward counted by a
+    hook, and in the backward its forward's work once more for its weight's
+    gradient where the weight trains and once more for its input's gradient
+    where the input carries one (none below the frozen layers: C4's conv1 and
+    conv2, VGG16's blocks 1-2)."""
+    fwd = layer_flops(det, lambda: det.loss_fn(*batch, gen), backward=True)
     opt.zero_grad()
     (total, _), t_fwd = timed(lambda: det.loss_fn(*batch, gen))
     _, t_bwd = timed(total.backward)
     _, t_opt = timed(opt.step)
-    tflop = (3 * fwd - first) / 1e12
+    tflop = fwd / 1e12
     step_ms = t_fwd + t_bwd + t_opt
-    print(f"{det.model_type} {dtype_name(det)} train stages, batch {batch[0].shape[0]} at "
+    print(f"{describe(det.model_type, det.backbone_name, det.cfg)} {dtype_name(det)} train "
+          f"stages, batch {batch[0].shape[0]} at "
           f"{tuple(batch[0].shape[1:3])}: forward + proposals + targets {t_fwd:.2f} ms, "
           f"backward {t_bwd:.2f} ms, optimizer {t_opt:.2f} ms; conv + linear work "
           f"{tflop:.4f} TFLOP per step, {tflop / step_ms * 1e3:.2f} TFLOP/s over the step, "
@@ -1584,35 +1712,38 @@ def calibrate_frozen_bn(det, forward):
             h.remove()
 
 
-def drive_training(model_type, card, dtype="float32"):
+def drive_training(model_type, card, dtype="float32", backbone="resnet50", steps=None):
     """Training at full width, stock config, seeded random weights: 8 steps
     at B=1 (landscape and portrait interleaved), 3 at B=4 (landscape); FPN
     also 2 at B=1 with `tpu_roi_align_fused_levels` False. Under bfloat16
     compute `BF16_STEPS` of each, parameters and momentum checked float32,
     and for Faster R-CNN the peak memory of a B=4 step with and without
-    `tpu_remat`. Returns ({path: launch counts}, the B=1 median step ms)."""
+    `tpu_remat`. `steps` = (B=1, B=4, per level) overrides the counts. The
+    frozen parameters (C4's conv1 and conv2, VGG16's blocks 1-2) must keep
+    their bits. Returns ({path: launch counts}, the B=1 median step ms)."""
     cfg = dict(config_factory("pascal", model_type), tpu_compute_dtype=dtype)
     bf16 = dtype == "bfloat16"
-    check_training_against_cpu(model_type, cfg, card)
-    det = model_factory(model_type, "resnet50", cfg, device="cuda", seed=0)
+    check_training_against_cpu(model_type, cfg, card, backbone)
+    det = model_factory(model_type, backbone, cfg, device="cuda", seed=0)
     opt = make_optimizer(cfg, det)
     step = make_train_step(det, opt)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.RandomState(0)
     items = make_train_items()
-    n1, n4, n_per_level = BF16_STEPS if bf16 else (len(items), 3, 2)
+    n1, n4, n_per_level = steps or (BF16_STEPS if bf16 else (len(items), 3, 2))
     b1 = [train_batch([it], cfg, rng) for it in items[:n1]]
     landscape = [it for it in items if it[0].shape[0] < it[0].shape[1]][:BATCH]
     b4 = [train_batch(landscape, cfg, rng) for _ in range(n4)]
     if model_type == "fpn":  # conv5 is inside the extractor
         calibrate_frozen_bn(det, lambda: det.extractor(b4[0][0]))
-    else:  # the backbone, then the conv5 RoI head on the sampled rois
+    elif backbone != "vgg16":  # the backbone, then the conv5 RoI head on the sampled rois
         calib = torch.Generator(device="cuda").manual_seed(1)
         calibrate_frozen_bn(det, lambda: det.loss_fn(*b4[0], calib))
+    frozen = {n: p.detach().clone() for n, p in det.named_parameters() if not p.requires_grad}
     step(b1[0], gen)  # warm-up: cuDNN algorithm choice, allocator
     step(b4[0], gen)
     suffix = "_bf16" if bf16 else ""
-    name = PATH_NAME[model_type] + suffix
+    name = PATH_NAME[model_type] + (f"_{backbone}" if backbone != "resnet50" else "") + suffix
     paths, b1_ms = {}, None
     for path, batches in ((f"{name}_train_b1", b1), (f"{name}_train_b4", b4)):
         paths[path], ms = train_path(path, step, batches, gen, cfg,
@@ -1628,6 +1759,12 @@ def drive_training(model_type, card, dtype="float32"):
             f"{name}_train_per_level", step, b1[:n_per_level], gen, cfg,
             PER_STEP["fpn_per_level" + suffix], card)[0]
         device_profile(lambda: step(b1[0], gen), card)
+    now = dict(det.named_parameters())
+    require(all(torch.equal(now[n], t) for n, t in frozen.items()),
+            f"{name}: a frozen parameter changed")
+    print(f"{name}: the {len(frozen)} frozen parameters "
+          f"({sorted({n.split('.')[1].split('_')[0] for n in frozen})}) kept their bits over "
+          f"the steps")
     if bf16:
         require({p.dtype for p in det.parameters()} == {torch.float32}
                 and {t.dtype for t in opt.trace.values()} == {torch.float32},
@@ -1639,6 +1776,75 @@ def drive_training(model_type, card, dtype="float32"):
     del det, opt, step
     torch.cuda.empty_cache()
     return paths, b1_ms
+
+
+def drive_batch(path, model_type, backbone, cfg, requests, card):
+    """One served batch: the first BATCH landscape requests through
+    `im_detect_batch` and `post_ops_prediction`, float32, after a warm-up
+    call; launches (K1 once for the batch's RPN NMS and once an image, FPN
+    K4 once) set to 0 before and checked after; detections checked; batch
+    time and peak memory printed. Returns the launches."""
+    det = model_factory(model_type, backbone, cfg, device="cuda", seed=0)
+    pre = [preprocess_eval_image(img, cfg) for img in requests]
+    bucket_h = min(b[0] for b in cfg["tpu_image_buckets"])
+    land = [p for p in pre if p[0].shape[0] == bucket_h][:BATCH]
+    images = torch.as_tensor(np.stack([p[0] for p in land]), device="cuda")
+    hws = torch.as_tensor(np.stack([p[1] for p in land]), device="cuda").long()
+    scales = torch.as_tensor([p[2] for p in land], dtype=torch.float32, device="cuda")
+    # statistics of a pretrained network's kind: uncalibrated, the random
+    # residual stream grows ~2x a block over ResNet-152's 50
+    calibrate_frozen_bn(det, lambda: det.im_detect_batch(images, hws, scales))
+    det.im_detect_batch(images, hws, scales)  # warm-up: cuDNN algorithm choice, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    raw = det.im_detect_batch(images, hws, scales)
+    results = {i: post_process([t[i] for t in raw], land[i], cfg, det.num_classes)
+               for i in range(BATCH)}
+    launches = launch_counts()
+    check_detections(results, BATCH, cfg["max_objects_per_image"])
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["nms_alive_sorted"] = 1 + BATCH
+    expected["roi_align_multilevel"] = 1 if model_type == "fpn" else 0
+    print(f"{path} kernel launches in one served batch: {launches} (expected {expected})")
+    require(launches == expected, f"{path} launches {launches} != expected {expected}")
+    batch_ms = cuda_ms(lambda: det.im_detect_batch(images, hws, scales), iters=3)
+    size = "x".join(map(str, images.shape[1:3]))
+    tflop = layer_flops(det, lambda: det.im_detect_batch(images, hws, scales)) / 1e12
+    print(f"{path} im_detect_batch b{BATCH} {size}: {batch_ms:.2f} ms/batch = "
+          f"{BATCH * 1e3 / batch_ms:.3f} images/s; conv + linear work {tflop:.4f} TFLOP, "
+          f"{tflop / batch_ms * 1e3 / (F32_FLOP_PER_S / 1e12):.3f} of the float32 peak; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  ({card})")
+    del det
+    torch.cuda.empty_cache()
+    return launches
+
+
+def drive_slim(requests, card):
+    """FPN ResNet-50 with `tpu_fpn_backbone_style: "slim"`: `predict` and one
+    training loss and backward on the card against the port's CPU path, one
+    served batch (K1, K4) and one B=1 training step at full width (K1, K4,
+    K5). Returns {path: launches}."""
+    cfg = dict(config_factory("pascal", "fpn"), tpu_fpn_backbone_style="slim")
+    # the slim extractor's he-normal init saturates the random RPN scores at
+    # 1.0 on these inputs: both sides take the input's statistics first
+    check_against_cpu("fpn", cfg, card, calibrate=True)
+    slim_step_against_cpu(cfg, card)
+    paths = {"fpn_slim": drive_batch("fpn_slim", "fpn", "resnet50", cfg, requests, card)}
+    det = model_factory("fpn", "resnet50", cfg, device="cuda", seed=0)
+    require(type(det.extractor).__name__ == "SlimResNetBackbone",
+            f"fpn_slim extractor {type(det.extractor).__name__}")
+    step = make_train_step(det, make_optimizer(cfg, det))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rng = np.random.RandomState(0)
+    b1 = [train_batch([it], cfg, rng) for it in make_train_items()[:1]]
+    calibrate_frozen_bn(det, lambda: det.extractor(b1[0][0]))
+    step(b1[0], gen)  # warm-up at the timed step's shape: cuDNN algorithm choice
+    paths["fpn_slim_train_b1"] = train_path("fpn_slim_train_b1", step, b1, gen, cfg,
+                                            PER_STEP["fpn"], card)[0]
+    del det, step
+    torch.cuda.empty_cache()
+    return paths
 
 
 def remat_peak_memory(det, step, batch, gen, card):
@@ -1655,7 +1861,8 @@ def remat_peak_memory(det, step, batch, gen, card):
         torch.cuda.synchronize()
         out[remat] = ((time.perf_counter() - t) * 1e3, torch.cuda.max_memory_allocated() / 2**30)
     det.cfg["tpu_remat"] = False
-    print(f"{det.model_type} {dtype_name(det)} one B={batch[0].shape[0]} step at "
+    print(f"{describe(det.model_type, det.backbone_name)} {dtype_name(det)} one "
+          f"B={batch[0].shape[0]} step at "
           f"{tuple(batch[0].shape[1:3])}: peak device memory {out[False][1]:.2f} GiB without "
           f"tpu_remat, {out[True][1]:.2f} GiB with it; step {out[False][0]:.2f} ms and "
           f"{out[True][0]:.2f} ms  ({card})")
@@ -1990,16 +2197,28 @@ def main() -> int:
     paths, served = {}, {}
     for model_type in ("faster_rcnn", "fpn"):
         paths[model_type], served[model_type] = drive_path(model_type, requests, card)
+    paths["frcnn_vgg16"], served["vgg16"] = drive_path("faster_rcnn", requests, card,
+                                                       backbone="vgg16", path="frcnn_vgg16")
     for model_type in ("faster_rcnn", "fpn"):
         paths[f"{model_type}_bf16"] = drive_path(model_type, requests, card, "bfloat16",
                                                  served[model_type])[0]
+    paths["frcnn_vgg16_bf16"] = drive_path("faster_rcnn", requests, card, "bfloat16",
+                                           served["vgg16"], "vgg16", "frcnn_vgg16_bf16")[0]
+    for backbone in ("resnet101", "resnet152"):
+        for model_type in ("faster_rcnn", "fpn"):
+            path = f"{PATH_NAME[model_type]}_{backbone}"
+            paths[path] = drive_batch(path, model_type, backbone,
+                                      config_factory("pascal", model_type), requests, card)
+    paths.update(drive_slim(requests, card))
     print(f"serving phases done at {time.perf_counter() - t_start:.1f} s")
     bare_ms = {}
     for model_type in ("fpn", "faster_rcnn"):
         trained, bare_ms[model_type] = drive_training(model_type, card)
         paths.update(trained)
+    paths.update(drive_training("faster_rcnn", card, backbone="vgg16", steps=VGG16_STEPS)[0])
     for model_type in ("fpn", "faster_rcnn"):
         paths.update(drive_training(model_type, card, "bfloat16")[0])
+    paths.update(drive_training("faster_rcnn", card, "bfloat16", "vgg16", VGG16_STEPS)[0])
     print(f"training phases done at {time.perf_counter() - t_start:.1f} s")
     paths.update(drive_voc_eval(requests, card))
     print(f"eval phase done at {time.perf_counter() - t_start:.1f} s")

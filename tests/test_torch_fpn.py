@@ -52,6 +52,8 @@ RPN_SCORE_SCALE = 20.0
 ROI_SCORE_SCALE = 10.0
 
 # keys of the JAX preset that only select or tune TPU code paths
+# read by JAX `models/fpn.py` with `cfg.get(key, default)`, absent from its preset
+_JAX_DEFAULTS = {"tpu_fpn_backbone_style": "keras"}
 _TPU_ONLY_KEYS = {
     "tpu_roi_align_window_dtype", "tpu_roi_align_window", "tpu_roi_align_contract",
     "tpu_fused_optimizer", "tpu_fpn_per_level_prenms", "tpu_native_decode",
@@ -107,10 +109,14 @@ def _level_margin(rois):
 
 
 def test_fpn_preset_matches_jax():
+    """The port's preset is JAX's without the TPU-only keys, plus the keys
+    the JAX detector reads with a default its preset does not list (the
+    port's preset lists them at that default)."""
     ours = config_factory("pascal", "fpn")
     ref = jax_config("pascal", "fpn")
     assert set(ref) - set(ours) == _TPU_ONLY_KEYS
-    assert ours == {k: v for k, v in ref.items() if k in ours}
+    assert set(ours) - set(ref) == set(_JAX_DEFAULTS)
+    assert ours == {**{k: v for k, v in ref.items() if k in ours}, **_JAX_DEFAULTS}
 
 
 @pytest.mark.parametrize("in_hw,out_hw", [((5, 7), (10, 14)), ((5, 7), (9, 13)), ((4, 8), (4, 8)),

@@ -215,6 +215,54 @@ def test_trainer_checkpoints_and_clis_import_without_jax():
     assert proc.stdout.strip().endswith("OK")
 
 
+def test_vgg16_and_slim_fpn_run_on_cpu_without_importing_jax():
+    """VGG16 Faster R-CNN serves and takes a training step (its dropout
+    masks drawn with the samplers'), and a slim-style FPN serves, with no
+    JAX loaded."""
+    proc = _run(
+        """
+        import sys
+        import numpy as np
+        import torch
+        from tf_eager_object_detection_tpu_torch.config.config_factory import config_factory
+        from tf_eager_object_detection_tpu_torch.models.backbones.vgg import Vgg16RoiHead
+        from tf_eager_object_detection_tpu_torch.models.backbones.resnet import (
+            SlimResNetBackbone,
+        )
+        from tf_eager_object_detection_tpu_torch.models.model_factory import model_factory
+        from tf_eager_object_detection_tpu_torch.training.optimizer import make_optimizer
+        from tf_eager_object_detection_tpu_torch.training.train_step import make_train_step
+
+        small = dict(rpn_proposal_test_pre_nms_sample_number=100,
+                     rpn_proposal_test_after_nms_sample_number=20,
+                     rpn_proposal_train_pre_nms_sample_number=100,
+                     rpn_proposal_train_after_nms_sample_number=20, rpn_total_sample_number=32,
+                     roi_total_sample_number=8, max_objects_per_image=5,
+                     max_objects_per_class_per_image=5, scales=[2, 4, 8])
+        cfg = dict(config_factory("pascal", "faster_rcnn"), **small)
+        det = model_factory("faster_rcnn", "vgg16", cfg, device="cpu")
+        assert isinstance(det.roi_head, Vgg16RoiHead) and not det.training
+        img = np.random.RandomState(0).randn(64, 96, 3).astype(np.float32) * 50
+        assert det.predict(img, [60, 90]).boxes.shape == (5, 4)
+        gt = np.array([[[5, 5, 40, 50]]], np.float32)
+        batch = (img[None], np.array([[60, 90]]), gt, np.array([[True]]), np.array([[3]]))
+        m = make_train_step(det, make_optimizer(cfg, det))(batch, torch.Generator().manual_seed(0))
+        assert all(np.isfinite(float(v)) for v in m.values())
+        fcfg = dict(config_factory("pascal", "fpn"), tpu_fpn_backbone_style="slim",
+                    rpn_proposal_test_pre_nms_sample_number=100,
+                    rpn_proposal_test_after_nms_sample_number=20, max_objects_per_image=5,
+                    max_objects_per_class_per_image=5)
+        fdet = model_factory("fpn", "resnet50", fcfg, device="cpu")
+        assert isinstance(fdet.extractor, SlimResNetBackbone)
+        assert fdet.predict(img, [60, 90]).boxes.shape == (5, 4)
+""" + _NO_JAX + """
+        print("OK")
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
 def test_chip_smoke_imports_only_the_port():
     proc = _run(
         """

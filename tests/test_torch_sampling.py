@@ -178,9 +178,16 @@ def test_proposal_target_matches_jax(case, strict):
 
 
 def test_train_draws_shapes_and_ranges():
+    """Without dropout the keep masks are None; with a head's (keep
+    probability, width) they are bool [2, B * S, width]."""
     gen = torch.Generator().manual_seed(0)
     d = sampling.TrainDraws.sample(gen, 2, 100, 30, 8)
-    assert [tuple(t.shape) for t in d] == [(2, 100), (2, 100), (2, 30), (2, 30), (2, 8, 30)]
+    assert [None if t is None else tuple(t.shape) for t in d] == [
+        (2, 100), (2, 100), (2, 30), (2, 30), (2, 8, 30), None]
     for t in d[:4]:
         assert float(t.min()) >= 0.0 and float(t.max()) < 1.0
     assert bool(torch.isfinite(d.roi_bg_gumbel).all())
+    k = sampling.TrainDraws.sample(gen, 2, 100, 30, 8, (0.25, 64)).dropout_keep
+    assert k.shape == (2, 16, 64) and k.dtype == torch.bool
+    assert 0.2 < float(k.float().mean()) < 0.3
+    assert d.to("cpu").dropout_keep is None and torch.equal(d.to("cpu").roi_fg, d.roi_fg)

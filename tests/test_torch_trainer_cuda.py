@@ -71,7 +71,7 @@ def _one_step(device, records, logs):
     draws = TrainDraws.sample(torch.Generator().manual_seed(3), 1,
                               (128 // 16) ** 2 * det.num_anchors, POST_NMS, ROI_SAMPLES)
     trainer = Trainer(det, logs, logging_every_n_steps=1000, seed=5,
-                      draws=lambda step: TrainDraws(*(t.to(device) for t in draws)))
+                      draws=lambda step: draws.to(device))
     before = {n: p.detach().cpu().clone() for n, p in det.named_parameters()}
     metrics = []
     step_fn = trainer.step_fn

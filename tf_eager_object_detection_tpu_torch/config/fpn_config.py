@@ -8,7 +8,9 @@ contraction order (`tpu_roi_align_window`, `tpu_roi_align_window_dtype`,
 The port's RoIAlign samples exactly, with no window. It keeps
 `tpu_roi_align_fused_levels`: True (the default) samples every roi from its
 level in one fused-pyramid kernel (K4, backward K5), False runs the
-single-level kernel once per level and sums (K2, backward K3).
+single-level kernel once per level and sums (K2, backward K3). It adds
+`tpu_fpn_backbone_style`, which the JAX detector reads with the default
+"keras" but its preset does not list.
 """
 
 
@@ -81,6 +83,10 @@ def get_default_pascal_fpn_config():
         "tpu_compute_dtype": "float32",
         # one fused-pyramid RoIAlign launch (True) or one per level (False)
         "tpu_roi_align_fused_levels": True,
+        # "keras" (ResNetBackbone) or "slim" (SlimResNetBackbone); JAX reads it
+        # with this default and its preset has no entry, so that only here can
+        # `--config_override` set it
+        "tpu_fpn_backbone_style": "keras",
     }
 
 

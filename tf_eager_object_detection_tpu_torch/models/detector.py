@@ -14,7 +14,9 @@ around the RPN and RoI heads.
 A subclass builds its modules, calls `_place(seed)`, and defines
 `_detect(images, image_hw) -> (rois [B, R, 4], roi_valid [B, R],
 roi_softmax [B, R, C], roi_deltas [B, R, C, 4])` and `min_edge`, the
-smallest box side `predict` keeps.
+smallest box side `predict` keeps; a detector whose RoI head has dropout
+(VGG16) sets `roi_dropout`, and `_detection_loss` draws the head's keep
+masks with the samplers' numbers. Serving never drops out.
 
 The config's `tpu_compute_dtype` ("float32" or "bfloat16"; anything else
 raises) is the detector's `compute_dtype`, the flax modules' `dtype`: with
@@ -53,9 +55,11 @@ from tf_eager_object_detection_tpu_torch.ops.sampling import (
     proposal_target,
 )
 
-__all__ = ["ServingDetector", "resolve_device", "RESNET_DEPTHS"]
+__all__ = ["ServingDetector", "resolve_device", "RESNET_DEPTHS", "BACKBONES"]
 
 RESNET_DEPTHS = {"resnet50": 50, "resnet101": 101, "resnet152": 152}
+# the backbones of each model type, as the JAX `model_factory` builds them
+BACKBONES = {"faster_rcnn": ("vgg16", *RESNET_DEPTHS), "fpn": tuple(RESNET_DEPTHS)}
 
 
 def resolve_device(device) -> torch.device:
@@ -72,17 +76,18 @@ def resolve_device(device) -> torch.device:
 class ServingDetector(nn.Module):
     model_type: str
     min_edge: float
+    # (keep probability, hidden width) of the RoI head's dropout layers, or
+    # None for a head without dropout; `loss_fn` draws their masks
+    roi_dropout: tuple[float, int] | None = None
     # init std of the layers the flax modules initialize with a fixed normal
     _FIXED_INIT_STD: Dict[str, float] = {}
 
     def __init__(self, backbone: str, config: Dict[str, Any], device):
         super().__init__()
+        if backbone not in BACKBONES[self.model_type]:
+            raise ValueError(f"unknown backbone {backbone} for {self.model_type}")
         self.device = resolve_device(device)
         cfg = dict(config)
-        if backbone not in RESNET_DEPTHS:
-            raise NotImplementedError(
-                f"backbone {backbone!r} is not ported yet (ROADMAP item 6, other backbones)"
-            )
         self.compute_dtype = resolve_compute_dtype(cfg.get("tpu_compute_dtype", "float32"))
         self.cfg = cfg
         self.backbone_name = backbone
@@ -113,9 +118,11 @@ class ServingDetector(nn.Module):
     @torch.no_grad()
     def _place(self, seed: int) -> None:
         """`init_params(seed)`, the freeze policy, then move to `self.device`
-        and switch to eval (no layer of the port behaves differently in
-        training). `generator`, on the device and seeded alike, draws the
-        samplers' random numbers when `loss_fn` is given none."""
+        and switch to eval: no layer of the port reads `self.training`, and
+        the only layer that differs in training, VGG16's dropout, is on
+        exactly where `loss_fn` hands the RoI head its keep masks.
+        `generator`, on the device and seeded alike, draws the samplers'
+        random numbers and those masks when `loss_fn` is given none."""
         self.init_params(seed)
         freeze_(self)
         self.to(self.device).eval()
@@ -147,8 +154,9 @@ class ServingDetector(nn.Module):
         `draws` as `loss_fn` takes it; anchors [A, 4]; rpn_logits [B, A, 2]
         and rpn_deltas [B, A, 4] in anchor order; `propose()` -> (rois
         [B, R, 4], roi_valid [B, R]), the proposals at the training sizes;
-        `roi_outputs(rois [B, S, 4])` -> (roi_scores [B * S, C], roi_deltas
-        [B * S, 4C]) for every sampled slot (as in JAX, none is masked).
+        `roi_outputs(rois [B, S, 4], keep)` -> (roi_scores [B * S, C],
+        roi_deltas [B * S, 4C]) for every sampled slot (as in JAX, none is
+        masked), with `keep` the draws' dropout masks (None without dropout).
         Proposals and targets carry no gradient. Metrics (0-dim tensors,
         read nothing back): rpn_cls_loss, rpn_reg_loss, roi_cls_loss,
         roi_reg_loss, total_loss, and the per-image means of num_proposals,
@@ -160,7 +168,7 @@ class ServingDetector(nn.Module):
         if not isinstance(draws, TrainDraws):
             draws = TrainDraws.sample(
                 self.generator if draws is None else draws, b, anchors.shape[0],
-                cfg["rpn_proposal_train_after_nms_sample_number"], s,
+                cfg["rpn_proposal_train_after_nms_sample_number"], s, self.roi_dropout,
             )
         with torch.no_grad():
             rois, roi_valid = propose()
@@ -189,7 +197,7 @@ class ServingDetector(nn.Module):
         rpn_cls = cls_loss(rpn_logits, at.labels, at.labels >= 0).mean()
         rpn_reg = smooth_l1_loss(rpn_deltas, at.bbox_targets, at.in_weights, at.out_weights,
                                  sigma=cfg["rpn_sigma"], dim=(1, 2))
-        roi_scores, roi_deltas = roi_outputs(pt.rois)
+        roi_scores, roi_deltas = roi_outputs(pt.rois, draws.dropout_keep)
         roi_cls = cls_loss(roi_scores, pt.labels.reshape(-1))
         roi_reg = smooth_l1_loss(roi_deltas, pt.bbox_targets.reshape(b * s, -1),
                                  pt.in_weights.reshape(b * s, -1),

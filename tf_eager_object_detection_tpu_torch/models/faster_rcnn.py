@@ -1,7 +1,9 @@
-"""Faster R-CNN detector, serving and training
+"""Faster R-CNN detector (VGG16, ResNet-50/101/152), serving and training
 (port of `tf_eager_object_detection_tpu/models/faster_rcnn.py`).
 
-One `nn.Module` holds the backbone, the RPN head and the conv5 RoI head;
+One `nn.Module` holds the backbone (VGG16's 13 convolutions, 512 channels,
+or ResNet's conv1..conv4, 1024 channels), the RPN head and the RoI head
+(VGG16's fc layers with dropout, or ResNet's conv5 stack);
 the detection logic runs on padded fixed-shape tensors with the batch
 dimension explicit, so the RPN NMS of a whole batch is one call. Image
 tensors are padded to a bucket shape; `image_hw` carries each image's valid
@@ -14,7 +16,9 @@ instead of a per-image vmap: the proposals at the training sizes (one RPN
 NMS per batch), the RPN and RoI targets and the four losses of
 `models/detector.py::_detection_loss`, and the RoI crop
 `roi_crop_faster_rcnn` (two matmuls) with autograd
-through it into the backbone.
+through it into the backbone. VGG16's RoI head drops out only there, with
+the keep masks of the step's `TrainDraws`, as JAX passes `train=True` in
+`loss_fn` alone.
 """
 
 from __future__ import annotations
@@ -32,6 +36,11 @@ from tf_eager_object_detection_tpu_torch.core.anchors import (
 from tf_eager_object_detection_tpu_torch.models.backbones.resnet import (
     ResNetBackbone,
     ResNetRoiHead,
+)
+from tf_eager_object_detection_tpu_torch.models.backbones.vgg import (
+    VGG16_HIDDEN,
+    Vgg16Extractor,
+    Vgg16RoiHead,
 )
 from tf_eager_object_detection_tpu_torch.models.detector import RESNET_DEPTHS, ServingDetector
 from tf_eager_object_detection_tpu_torch.models.heads import (
@@ -62,12 +71,21 @@ class FasterRCNNDetector(ServingDetector):
         self.min_edge = float(self.stride)
         self.num_anchors = len(cfg["ratios"]) * len(cfg["scales"])
         self.anchor_base = generate_anchor_base(self.stride, cfg["ratios"], cfg["scales"])
-        self.roi_max_pooling = cfg["resnet_roi_pooling_max_pooling_flag"]
 
         dt = self.compute_dtype
-        self.extractor = ResNetBackbone(RESNET_DEPTHS[backbone], compute_dtype=dt)
-        self.rpn_head = RpnHead(1024, self.num_anchors, dt)
-        self.roi_head = ResNetRoiHead(self.num_classes, dt)
+        if backbone == "vgg16":
+            self.roi_max_pooling = cfg["vgg16_roi_pooling_max_pooling_flag"]
+            self.extractor = Vgg16Extractor(dt)
+            self.rpn_head = RpnHead(512, self.num_anchors, dt)
+            h, w, c = cfg["vgg16_roi_feature_size"]
+            self.roi_head = Vgg16RoiHead(self.num_classes, cfg["roi_head_keep_dropout_rate"],
+                                         h * w * c, dt)
+            self.roi_dropout = (self.roi_head.keep_prob, VGG16_HIDDEN)
+        else:
+            self.roi_max_pooling = cfg["resnet_roi_pooling_max_pooling_flag"]
+            self.extractor = ResNetBackbone(RESNET_DEPTHS[backbone], compute_dtype=dt)
+            self.rpn_head = RpnHead(1024, self.num_anchors, dt)
+            self.roi_head = ResNetRoiHead(self.num_classes, dt)
         self._anchor_cache: dict = {}
         self._place(seed)
 
@@ -86,7 +104,7 @@ class FasterRCNNDetector(ServingDetector):
 
     # ----------------------------------------------------------- shared path
     def _backbone_rpn(self, images: torch.Tensor):
-        """-> (feats [B, h, w, 1024] in the compute dtype, score and bbox maps
+        """-> (feats [B, h, w, 512 or 1024] in the compute dtype, score and bbox maps
         float32). With `tpu_remat`, a training forward keeps no activation
         of the extractor and recomputes them in the backward."""
         if self.cfg.get("tpu_remat", False) and torch.is_grad_enabled():
@@ -124,13 +142,17 @@ class FasterRCNNDetector(ServingDetector):
             clip_deltas=self.clip_deltas,
         )
 
-    def _roi_outputs(self, feats, rois):
-        """RoI crops of `rois` [B, R, 4] through the conv5 head ->
-        (roi_scores [B * R, C], roi_deltas [B * R, 4C])."""
+    def _roi_outputs(self, feats, rois, keep=None):
+        """RoI crops of `rois` [B, R, 4] through the RoI head ->
+        (roi_scores [B * R, C], roi_deltas [B * R, 4C]). `keep`: VGG16's
+        dropout masks [2, B * R, 4096] in training, else None."""
         roi_feats = roi_crop_faster_rcnn(
             feats, rois, self.stride, self.cfg["roi_pooling_size"], self.roi_max_pooling
         )
-        return self.roi_head(roi_feats.reshape(-1, *roi_feats.shape[2:]))
+        roi_feats = roi_feats.reshape(-1, *roi_feats.shape[2:])
+        if keep is None:
+            return self.roi_head(roi_feats)
+        return self.roi_head(roi_feats, keep)
 
     def _roi_forward(self, feats, score_map, bbox_map, image_hw):
         """Batched eval path up to the raw RoI head outputs."""
@@ -151,7 +173,8 @@ class FasterRCNNDetector(ServingDetector):
         pixels with gt_mask [B, G] and gt_labels [B, G] (class ids >= 1);
         numpy or tensors. `draws` is the samplers' `TrainDraws`, or a
         `torch.Generator` on the detector's device to draw them from, or None
-        for the detector's own `generator`. Metrics: those of
+        for the detector's own `generator`; with VGG16 the draws carry the
+        RoI head's dropout masks. Metrics: those of
         `ServingDetector._detection_loss`.
         """
         images, image_hw, *gt = self._train_inputs(images, image_hw, gt_boxes, gt_mask,
@@ -162,5 +185,5 @@ class FasterRCNNDetector(ServingDetector):
             image_hw, *gt, draws, self.anchors_for_grid(gh, gw),
             frcnn_score_logits(score_map, self.num_anchors), bbox_map.reshape(b, -1, 4),
             lambda: self._proposals(score_map, bbox_map, image_hw, training=True),
-            lambda rois: self._roi_outputs(feats, rois),
+            lambda rois, keep: self._roi_outputs(feats, rois, keep),
         )

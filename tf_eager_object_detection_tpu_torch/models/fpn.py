@@ -1,7 +1,9 @@
 """FPN detector (ResNet-50/101/152), serving and training
 (port of `tf_eager_object_detection_tpu/models/fpn.py`).
 
-- extractor: multi-output ResNet (c2..c5, conv5 inside the extractor);
+- extractor: multi-output ResNet (c2..c5, conv5 inside the extractor),
+  keras-style or, with `tpu_fpn_backbone_style: "slim"`, slim-style
+  (`models/backbones/resnet.py`; any other style raises ValueError);
 - neck: 1x1 laterals, TF1-semantics bilinear upsample as two matmuls,
   0.5/0.5 fusion, 3x3 SAME convs on p2..p4, p6 = p5 subsampled by 2;
 - one RPN head shared by p2..p6 with the FPN score layout ([A, 2] per
@@ -44,7 +46,10 @@ import torch
 from torch import nn
 
 from tf_eager_object_detection_tpu_torch.core.anchors import make_level_anchors, valid_anchor_mask
-from tf_eager_object_detection_tpu_torch.models.backbones.resnet import ResNetBackbone
+from tf_eager_object_detection_tpu_torch.models.backbones.resnet import (
+    ResNetBackbone,
+    SlimResNetBackbone,
+)
 from tf_eager_object_detection_tpu_torch.models.detector import RESNET_DEPTHS, ServingDetector
 from tf_eager_object_detection_tpu_torch.models.heads import RpnHead
 from tf_eager_object_detection_tpu_torch.models.layers import Conv2d, Linear, SameConv2d
@@ -165,10 +170,17 @@ class FPNDetector(ServingDetector):
         dims = cfg["top_down_dims"]
 
         dt = self.compute_dtype
-        self.extractor = ResNetBackbone(
-            RESNET_DEPTHS[backbone], return_stages=("c2", "c3", "c4", "c5"), include_c5=True,
-            compute_dtype=dt,
-        )
+        self.backbone_style = cfg.get("tpu_fpn_backbone_style", "keras")
+        if self.backbone_style == "slim":
+            self.extractor = SlimResNetBackbone(RESNET_DEPTHS[backbone], dt)
+        elif self.backbone_style == "keras":
+            self.extractor = ResNetBackbone(
+                RESNET_DEPTHS[backbone], return_stages=("c2", "c3", "c4", "c5"),
+                include_c5=True, compute_dtype=dt,
+            )
+        else:
+            raise ValueError(f"unknown tpu_fpn_backbone_style {self.backbone_style!r}: "
+                             "expected 'keras' or 'slim'")
         self.neck = ResnetFpnNeck(dims=dims, compute_dtype=dt)
         self.rpn_head = RpnHead(dims, self.num_anchors, dt)
         pool = cfg["roi_pooling_size"]
@@ -177,7 +189,8 @@ class FPNDetector(ServingDetector):
         self._place(seed)
 
     def _init_std(self, name: str, fan_in: int) -> float:
-        if name.startswith("neck."):
+        if name.startswith("neck.") or (self.backbone_style == "slim"
+                                        and name.startswith("extractor.")):
             return (2.0 / fan_in) ** 0.5  # he normal
         return super()._init_std(name, fan_in)
 
@@ -299,7 +312,7 @@ class FPNDetector(ServingDetector):
         p_list, score_list, bbox_list = self._backbone_neck_rpn(images)
         scores2, deltas, grids = self._flatten_levels(score_list, bbox_list)
 
-        def roi_outputs(rois):
+        def roi_outputs(rois, keep):  # keep: None, the FPN head has no dropout
             every = torch.ones(rois.shape[:2], dtype=torch.bool, device=rois.device)
             feats = self._roi_features(p_list, rois, every, image_hw)
             return self.roi_head(feats.reshape(-1, *feats.shape[2:]))

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 from torch import nn
 
+from tf_eager_object_detection_tpu_torch.models.backbones.vgg import VGG16_FROZEN_PREFIXES
+
 __all__ = ["is_frozen", "trainable_mask", "weight_decay_mask", "freeze_"]
 
 
@@ -24,7 +26,7 @@ def is_frozen(name: str, backbone: str, model_type: str = "faster_rcnn") -> bool
         return False
     layer = rest.partition(".")[0]
     if backbone == "vgg16":
-        return layer.startswith(("block1_", "block2_"))
+        return layer in VGG16_FROZEN_PREFIXES
     return layer.startswith(("conv1_", "conv2_"))
 
 

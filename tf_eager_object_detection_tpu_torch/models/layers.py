@@ -10,7 +10,8 @@ bfloat16 and its parameters' gradients come back float32 through the cast.
 A float32 layer given a bfloat16 input computes in float32 on the exact
 upcast, as flax promotes a layer that has no `dtype`. `FrozenBatchNorm`
 computes its scale and shift in float32 and applies them in the input's
-dtype.
+dtype. `max_pool_same` is keras 'SAME' max pooling (the extra row and
+column of an odd side on the bottom and right, padded with -inf).
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Conv2d", "FrozenBatchNorm", "Linear", "SameConv2d", "resolve_compute_dtype"]
+__all__ = ["Conv2d", "FrozenBatchNorm", "Linear", "SameConv2d", "max_pool_same",
+           "resolve_compute_dtype"]
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -61,6 +63,17 @@ def _same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
     out = math.ceil(size / stride)
     total = max((out - 1) * stride + kernel - size, 0)
     return total // 2, total - total // 2
+
+
+def max_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """Max pool of [B, C, H, W] with TF 'SAME' padding: -inf where the
+    window passes the edge, the odd one on the bottom / right, unlike torch's
+    symmetric pooling padding."""
+    top, bottom = _same_padding(x.shape[-2], window, stride)
+    left, right = _same_padding(x.shape[-1], window, stride)
+    if top or bottom or left or right:
+        x = F.pad(x, (left, right, top, bottom), value=float("-inf"))
+    return F.max_pool2d(x, window, stride)
 
 
 class Conv2d(nn.Conv2d):

@@ -15,7 +15,7 @@ reads a tensor back to the host.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -42,11 +42,13 @@ class ProposalTargets(NamedTuple):
 
 
 class TrainDraws(NamedTuple):
-    """The random numbers of one training step's samplers.
+    """The random numbers of one training step's samplers and dropout.
 
     anchor_fg / anchor_bg [B, A] and roi_fg / roi_bg [B, R]: uniform
     priorities in [0, 1); roi_bg_gumbel [B, S, R]: Gumbel noise for the
-    with-replacement background draw.
+    with-replacement background draw; dropout_keep: the keep masks of a RoI
+    head's two dropout layers, bool [2, B * S, H] (VGG16's head), or None for
+    a head without dropout (ResNet, FPN).
     """
 
     anchor_fg: torch.Tensor
@@ -54,11 +56,15 @@ class TrainDraws(NamedTuple):
     roi_fg: torch.Tensor
     roi_bg: torch.Tensor
     roi_bg_gumbel: torch.Tensor
+    dropout_keep: Optional[torch.Tensor] = None
 
     @classmethod
     def sample(cls, generator: torch.Generator, batch: int, num_anchors: int, num_rois: int,
-               num_samples: int) -> "TrainDraws":
-        """Fresh draws from `generator`, on its device."""
+               num_samples: int, dropout: Optional[tuple[float, int]] = None) -> "TrainDraws":
+        """Fresh draws from `generator`, on its device. `dropout` = (keep
+        probability, hidden width) of a head with dropout: the keep masks are
+        uniform draws below the keep probability, as `jax.random.bernoulli`
+        makes them, drawn after the samplers' numbers."""
         kw = dict(generator=generator, device=generator.device)
 
         def uniform(*shape):
@@ -66,8 +72,16 @@ class TrainDraws(NamedTuple):
 
         tiny = torch.finfo(torch.float32).tiny
         u = uniform(batch, num_samples, num_rois).clamp_min(tiny)
-        return cls(uniform(batch, num_anchors), uniform(batch, num_anchors),
-                   uniform(batch, num_rois), uniform(batch, num_rois), -torch.log(-torch.log(u)))
+        draws = [uniform(batch, num_anchors), uniform(batch, num_anchors),
+                 uniform(batch, num_rois), uniform(batch, num_rois), -torch.log(-torch.log(u))]
+        if dropout is not None:
+            keep_prob, hidden = dropout
+            draws.append(uniform(2, batch * num_samples, hidden) < keep_prob)
+        return cls(*draws)
+
+    def to(self, device) -> "TrainDraws":
+        """The draws on `device`."""
+        return TrainDraws(*(None if t is None else t.to(device) for t in self))
 
 
 def _top(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
