@@ -15,8 +15,10 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
 3. K1, the NMS kernel, against its plain PyTorch version: index-exact at the
    Faster R-CNN shapes ([1, 6000] -> 300 for `predict`, [4, 6000] -> 300 for
    a served batch, [20, 300] -> 50 per class), the FPN shapes ([4, 6000] ->
-   1000, [20, 1000] -> 50) and a cluster-heavy fixture with padded slots
-   ([1, 12000] -> 2000, the training RPN NMS). Kernel times come from
+   1000, [20, 1000] -> 50), a cluster-heavy fixture with padded slots
+   ([1, 12000] -> 2000, the training RPN NMS) and the COCO per-class shape
+   ([80, 300] -> 100: every row at the cap, then, with 7 slots in 10
+   invalid, none). Kernel times come from
    CUDA-graph replays (`graph_ms`: the wrappers' host work is not replayed,
    so a kernel shorter than its launch is still timed by the card), the
    plain versions' from CUDA events around their calls. Then the
@@ -81,7 +83,12 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    `fpn_resnet152`), and FPN with `tpu_fpn_backbone_style: "slim"`:
    `predict` and one training loss and backward against the CPU, one
    served batch (`fpn_slim`) and one B=1 training step (`fpn_slim_train_b1`,
-   K1, K4, K5).
+   K1, K4, K5). Then Faster R-CNN ResNet-50 with the COCO config (12
+   anchors a cell, 81 classes, caps of 100), float32 and bf16, on the same
+   requests (`frcnn_coco`, `frcnn_coco_bf16`; `predict` against the CPU
+   with four anchor scales at the small input). Every serving path checks
+   K1's launches by shape too: [4, 6000] a batch, [1, 6000] for `predict`,
+   one class-batched NMS an image (COCO: [80, 300] -> 100).
 7. FPN ResNet-50 training, then Faster R-CNN ResNet-50 (C4) training, each
    with the stock config, full width, seeded random weights: one loss +
    backward on the card, with cuDNN off and then on, against the port's CPU
@@ -97,7 +104,9 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    step; the frozen parameters unchanged after the steps. Faster R-CNN
    VGG16 likewise (`frcnn_vgg16_train_b1`, `_b4`, `VGG16_STEPS`; the
    draws of the card-vs-CPU step carry the dropout masks; blocks 1-2
-   frozen). Then all three with bfloat16 compute (`fpn_bf16_train_b1` and
+   frozen), and C4 with the COCO config (`frcnn_coco_train_b1`, `_b4`,
+   `COCO_STEPS`; its card-vs-CPU step with anchor scales (1, 2, 4, 8)).
+   Then all three with bfloat16 compute (`fpn_bf16_train_b1` and
    the rest, `BF16_STEPS` or `VGG16_STEPS` steps each): one loss and
    backward on the card
    against the port's CPU bf16 path (the CPU step's proposals pinned,
@@ -131,9 +140,19 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    Prints the median step wall time with the input pipeline beside the
    bare step's of phase 7, and a profile of 4 trainer steps: wall, device
    busy, idle share, the host's wait for the next batch and the kernels
-   launched a step.
+   launched a step. Then `frcnn_coco_trainer` and `frcnn_coco_eval`: the
+   port's `coco_rehearsal.generate` writes 16 train and 16 val procedural
+   600x800 JPEGs and their instances JSONs; `Trainer.train` takes 12 steps
+   over `dataset_factory("coco", "train", ...)` with the COCO config, and a
+   fresh `Trainer` restores the checkpoint bit-equal; `eval_coco.main` from
+   it writes a results JSON that parses back and 12 stats in [-1, 1] (K1
+   once a batch and once an image at [80, 300] -> 100); from the untrained
+   seeded detector's `.npz` it writes results (at most 100 an image) that
+   parse back; and the non-crowd ground truth as detections scores AP
+   @[.50:.95] exactly 1.0.
 10. Prints a JSON line with the records of the five kernels and of the four
-   RoIAlign kernels' bf16-plane variants, then as its last line
+   RoIAlign kernels' bf16-plane variants (K1's with every shape of phase
+   3 under `per_shape`), then as its last line
    `{"ok": true, "device": {...}}`. Any failure raises: exit code != 0.
 """
 
@@ -155,6 +174,7 @@ import torch
 import torch.nn.functional as F
 
 from tf_eager_object_detection_tpu_torch.config.config_factory import config_factory
+from tf_eager_object_detection_tpu_torch.data.coco import CocoDataset
 from tf_eager_object_detection_tpu_torch.data.dataset_factory import dataset_factory
 from tf_eager_object_detection_tpu_torch.data.label_map import PASCAL_CLASSES
 from tf_eager_object_detection_tpu_torch.data.preprocessing import (
@@ -163,6 +183,7 @@ from tf_eager_object_detection_tpu_torch.data.preprocessing import (
 )
 from tf_eager_object_detection_tpu_torch.data.voc import create_pascal_tf_records
 from tf_eager_object_detection_tpu_torch.evaluation.batched_inference import batched_im_detect
+from tf_eager_object_detection_tpu_torch.evaluation.coco_eval import evaluate_coco_detections
 from tf_eager_object_detection_tpu_torch.evaluation.pascal_eval_files import (
     get_prediction_files,
     write_voc_detection_files,
@@ -187,8 +208,11 @@ from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_cuda import (
 )
 from tf_eager_object_detection_tpu_torch.ops.prediction import post_ops_prediction
 from tf_eager_object_detection_tpu_torch.ops.sampling import TrainDraws
-from tf_eager_object_detection_tpu_torch.scripts import eval_pascal
+from tf_eager_object_detection_tpu_torch.scripts import eval_coco, eval_pascal
+from tf_eager_object_detection_tpu_torch.scripts.coco_rehearsal import COCO_CAT_IDS
+from tf_eager_object_detection_tpu_torch.scripts.coco_rehearsal import generate as generate_coco
 from tf_eager_object_detection_tpu_torch.scripts.voc_rehearsal import generate
+from tf_eager_object_detection_tpu_torch.training.checkpoints import save_params
 from tf_eager_object_detection_tpu_torch.training.optimizer import make_optimizer
 from tf_eager_object_detection_tpu_torch.training.train_step import make_train_step
 from tf_eager_object_detection_tpu_torch.training.trainer import Trainer, prefetch
@@ -204,8 +228,17 @@ NMS_CASES = [  # (name, batch, boxes, max_output, iou threshold)
     ("fpn_rpn_batch", BATCH, 6000, 1000, 0.7),  # the RPN NMS of one served FPN batch
     ("fpn_per_class", 20, 1000, 50, 0.3),
     ("cluster_padded", 1, 12000, 2000, 0.7),
+    # the class-batched NMS of one COCO image (80 foreground classes, caps of
+    # 100): the cap reached in every row, then (7 slots in 10 invalid) in none
+    ("coco_per_class", 80, 300, 100, 0.3),
+    ("coco_per_class_uncapped", 80, 300, 100, 0.3),
 ]
 NMS_MAIN = "fpn_rpn_batch"
+# a case's own fixture seed and arguments (the earlier cases share one
+# generator, in order), and whether its rows reach the cap (most / none)
+NMS_FIXTURE_ARGS = {"coco_per_class": dict(seed=80),
+                    "coco_per_class_uncapped": dict(seed=81, invalid=0.7)}
+NMS_AT_CAP = {"coco_per_class": True, "coco_per_class_uncapped": False}
 # edge cases of the word-blocked scan (64 boxes a word), index-exact, not timed:
 # (name, batch, boxes, max_output, iou threshold, fixture)
 NMS_EDGE_CASES = [
@@ -238,7 +271,7 @@ BWD_OPS_PER_TAP = 2  # a multiply and an add per nonzero tap and channel
 TRAIN_ROIS = 256  # roi_total_sample_number of the stock config
 # the bare B=1 training step's median recorded in PERF.md before the trainer
 # existed (H100 80GB HBM3, 700 W), printed beside the trainer's
-RECORDED_BARE_STEP_MS = {"fpn": 57.96, "faster_rcnn": 51.00}
+RECORDED_BARE_STEP_MS = {"fpn": 57.96, "frcnn": 51.00}
 # the kernels of the port: launch counter, the plane dtype of the variant
 # (the wrappers count launches by it) and the TPU kernel it replaces
 _PALLAS = "tf_eager_object_detection_tpu/ops/pallas/"
@@ -495,7 +528,9 @@ def check_nms_kernel(card):
     rng = np.random.RandomState(0)
     record = {}
     for name, b, k, max_out, thr in NMS_CASES:
-        boxes, valid = nms_fixture(rng, b, k)
+        args = dict(NMS_FIXTURE_ARGS.get(name, {}))
+        own = np.random.RandomState(args.pop("seed")) if "seed" in args else rng
+        boxes, valid = nms_fixture(own, b, k, **args)
         tb = torch.from_numpy(boxes).cuda()
         tv = torch.from_numpy(valid).cuda()
         got = NMS_KERNEL(tb, tv, thr, max_out)
@@ -507,16 +542,21 @@ def check_nms_kernel(card):
                 f"{int((got != ref).sum())} slots")
         require(not bool((got & ~tv).any()) and int(kept.max()) <= max_out,
                 f"NMS kernel kept invalid slots or too many at {name}")
+        at_cap = float((kept == max_out).float().mean())
+        if name in NMS_AT_CAP:
+            require(at_cap > 0.5 if NMS_AT_CAP[name] else at_cap == 0.0,
+                    f"NMS fixture {name}: share of rows at the cap {at_cap}")
         ms = graph_ms(lambda: NMS_KERNEL(tb, tv, thr, max_out), calls=10)
         plain_ms = cuda_ms(
             lambda: nms_mod.nms_alive_sorted_reference(tb, tv, thr, max_out), iters=5, warmup=1
         )
         bound_ms, bound_by = nms_bound(tb, tv, got, thr)
         print(f"nms {name} [{b},{k}]->{max_out} @{thr}: index-exact, kept/row "
-              f"{int(kept.min())}..{int(kept.max())}, max_abs_err {err}, kernel {ms:.4f} ms, "
+              f"{int(kept.min())}..{int(kept.max())} (share at the cap {at_cap:.3f}), "
+              f"max_abs_err {err}, kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})  ({card})")
-        record[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by)
+        record[name] = dict(shape=f"[{b},{k}]->{max_out} @{thr:g}", max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
     for name, b, k, max_out, thr, kind in NMS_EDGE_CASES:
         boxes, valid = nms_edge_fixture(rng, b, k, kind)
         tb = torch.from_numpy(boxes).cuda()
@@ -1103,7 +1143,7 @@ def post_process(raw, item, cfg, num_classes):
     return type(dets)(*(t.cpu() for t in dets)), (raw_h, raw_w)
 
 
-def check_detections(results, n, slots):
+def check_detections(results, n, slots, num_classes=21):
     require(sorted(results) == list(range(n)), f"results for {sorted(results)}")
     for idx, (d, (raw_h, raw_w)) in results.items():
         require(d.boxes.shape == (slots, 4) and d.scores.shape == (slots,),
@@ -1117,7 +1157,8 @@ def check_detections(results, n, slots):
         b = d.boxes[v]
         require(float(b.min()) >= 0.0 and float(b[:, 2].max()) <= raw_w - 1
                 and float(b[:, 3].max()) <= raw_h - 1, f"request {idx}: box outside the image")
-        require(bool(((d.labels[v] >= 1) & (d.labels[v] < 21)).all()), f"request {idx}: label")
+        require(bool(((d.labels[v] >= 1) & (d.labels[v] < num_classes)).all()),
+                f"request {idx}: label")
         s = d.scores[v]
         require(bool((s > 0).all() and (s[:-1] >= s[1:]).all()), f"request {idx}: score order")
 
@@ -1138,10 +1179,13 @@ PIXEL_SCALE = {"vgg16": 50.0}
 
 
 def describe(model_type, backbone="resnet50", cfg=None) -> str:
-    """A path's model: `faster_rcnn`, `faster_rcnn vgg16`, `fpn slim`, ..."""
+    """A path's model: `faster_rcnn`, `faster_rcnn vgg16`, `fpn slim`,
+    `faster_rcnn coco` (the COCO config's 81 classes), ..."""
     parts = [model_type] + ([backbone] if backbone != "resnet50" else [])
     if cfg is not None and cfg.get("tpu_fpn_backbone_style", "keras") != "keras":
         parts.append(cfg["tpu_fpn_backbone_style"])
+    if cfg is not None and cfg["num_classes"] == 81:
+        parts.append("coco")
     return " ".join(parts)
 
 
@@ -1285,13 +1329,53 @@ def device_profile(fn, card, top: int = 8):
     return 1 - busy_ms / wall_ms
 
 
+class NmsShapes:
+    """While active, records ([B, K] -> max_output) of every K1 launch that
+    goes through `ops/nms.py` (the launch counts stay the kernel's own)."""
+
+    def __enter__(self):
+        self.shapes, self._kernel = [], nms_mod.NMS_KERNEL
+
+        def record(boxes, valid, iou_threshold, max_output):
+            self.shapes.append((*boxes.shape[:2], max_output))
+            return self._kernel(boxes, valid, iou_threshold, max_output)
+
+        nms_mod.NMS_KERNEL = record
+        return self
+
+    def __exit__(self, *exc):
+        nms_mod.NMS_KERNEL = self._kernel
+
+    def check(self, path, expected: dict):
+        """The launches by shape (B, K, max_output) must be `expected`."""
+        got = {}
+        for shape in self.shapes:
+            got[shape] = got.get(shape, 0) + 1
+        print(f"{path} K1 launches by [B, K] -> max_output: "
+              + ", ".join(f"[{b},{k}]->{m} x{n}" for (b, k, m), n in sorted(got.items())))
+        require(got == expected, f"{path} K1 shapes {got} != expected {expected}")
+
+
+def served_nms_shapes(cfg, batches, images, predicts=0):
+    """K1's shapes on a serving path: the RPN NMS of each batch of BATCH and
+    of each `predict`, the class-batched NMS of each image and `predict`."""
+    pre, post = (cfg["rpn_proposal_test_pre_nms_sample_number"],
+                 cfg["rpn_proposal_test_after_nms_sample_number"])
+    per_class = (cfg["num_classes"] - 1, post, cfg["max_objects_per_class_per_image"])
+    out = {(BATCH, pre, post): batches, per_class: images + predicts}
+    if predicts:
+        out[(1, pre, post)] = predicts
+    return out
+
+
 def drive_path(model_type, requests, card, dtype="float32", f32=None, backbone="resnet50",
-               path=None):
-    """One model's serving path in `dtype` compute; returns (the kernel
-    launches of its run, its figures). Under bfloat16 compute the backbone's
-    output is held against the float32 detector of the same seed and the
-    figures print beside `f32`'s, the float32 path's."""
-    cfg = dict(config_factory("pascal", model_type), tpu_compute_dtype=dtype)
+               path=None, data_type="pascal"):
+    """One model's serving path in `dtype` compute with the `data_type`
+    config; returns (the kernel launches of its run, its figures). Under
+    bfloat16 compute the backbone's output is held against the float32
+    detector of the same seed and the figures print beside `f32`'s, the
+    float32 path's. K1's launches are checked by shape too."""
+    cfg = dict(config_factory(data_type, model_type), tpu_compute_dtype=dtype)
     bf16 = dtype == "bfloat16"
     if not bf16:
         check_against_cpu(model_type, cfg, card, backbone)
@@ -1300,15 +1384,16 @@ def drive_path(model_type, requests, card, dtype="float32", f32=None, backbone="
     torch.cuda.synchronize()
 
     reset_launches()
-    results, latency, total, batches = serve(det, requests, cfg)
-    padded, hw, *_ = preprocess_eval_image(requests[0], cfg)
-    one = det.predict(padded, hw)
-    one = type(one)(*(t.cpu() for t in one))
+    with NmsShapes() as shapes:
+        results, latency, total, batches = serve(det, requests, cfg)
+        padded, hw, *_ = preprocess_eval_image(requests[0], cfg)
+        one = det.predict(padded, hw)
+        one = type(one)(*(t.cpu() for t in one))
     launches = launch_counts()
 
     slots = cfg["max_objects_per_image"]
-    check_detections(results, len(requests), slots)
-    check_detections({0: (one, (int(hw[0]), int(hw[1])))}, 1, slots)
+    check_detections(results, len(requests), slots, det.num_classes)
+    check_detections({0: (one, (int(hw[0]), int(hw[1])))}, 1, slots, det.num_classes)
     # one batched RPN NMS per flushed batch, one class-batched NMS per image;
     # FPN: one K4 launch per flushed batch and one for predict, on planes of
     # the compute dtype
@@ -1320,6 +1405,7 @@ def drive_path(model_type, requests, card, dtype="float32", f32=None, backbone="
     print(f"{path} kernel launches in the main path: {launches} (expected {expected}: "
           f"{batches} batches, {len(requests)} per-class NMS, predict)")
     require(launches == expected, f"{path} launches {launches} != expected {expected}")
+    shapes.check(path, served_nms_shapes(cfg, batches, len(requests), predicts=1))
 
     lat = np.sort(np.asarray(list(latency.values()))) * 1e3
     print(f"{path} serving {len(requests)} requests, batch {BATCH}, incl. host "
@@ -1395,6 +1481,16 @@ TRAIN_CPU_CHECK = {
     "fpn": dict(rpn_proposal_train_pre_nms_sample_number=512),
     "faster_rcnn": dict(rpn_proposal_train_pre_nms_sample_number=256, scales=[2, 4, 8]),
 }
+# the COCO config's four anchor scales at the 128x128 check: 12 anchors a
+# cell of 16-128 px (the stock 64-512 px would hardly fit the image)
+COCO_CPU_SCALES = [1, 2, 4, 8]
+# the seed of the COCO card-vs-CPU training check's weights. A comparison of
+# gradients needs a network with no unit near a ReLU kink: at seed 1 (the
+# Pascal and FPN checks') the COCO network's conv4 gradients move by up to
+# 1.9e-2 of their largest value on the CPU alone when the input is scaled
+# by 1 + 1e-6 (the Pascal one's by 5.2e-3), more than GRAD_TOL, and the card
+# differed by 3.1e-3; at seed 2 by at most 6e-4
+COCO_CPU_SEED = 2
 TRAIN_CPU_COMMON = dict(rpn_proposal_train_after_nms_sample_number=64, rpn_total_sample_number=64,
                         rpn_pos_sample_max_number=32, roi_total_sample_number=32,
                         roi_pos_sample_max_number=8, tpu_max_gt_boxes=8)
@@ -1417,6 +1513,7 @@ PER_STEP = {
 # VGG16 training path, float32 and bf16
 BF16_STEPS = (6, 3, 2)
 VGG16_STEPS = (5, 3, 0)
+COCO_STEPS = (6, 3, 0)
 PATH_NAME = {"fpn": "fpn", "faster_rcnn": "frcnn"}
 
 
@@ -1453,12 +1550,12 @@ def calibrated_state(model_type, backbone, cfg, images):
 
 
 def small_training_step(model_type, small, device, draws, inputs, pinned=None,
-                        backbone="resnet50", state=None):
-    """One loss and backward of a seeded detector on the small input ->
-    (metrics, gradients of the trainable tensors on the host). With
+                        backbone="resnet50", state=None, seed=1):
+    """One loss and backward of a detector of seed `seed` on the small input
+    -> (metrics, gradients of the trainable tensors on the host). With
     `pinned` (a dict), the detector's training proposals go into it, or come
     from it when it holds them already; `state` replaces its weights."""
-    det = model_factory(model_type, backbone, small, device=device, seed=1)
+    det = model_factory(model_type, backbone, small, device=device, seed=seed)
     if state is not None:
         det.load_state_dict(state)
     with torch.no_grad():
@@ -1531,6 +1628,9 @@ def check_training_against_cpu(model_type, cfg, card, backbone="resnet50"):
     VGG16's draws carry the dropout masks, the same on both sides."""
     small = dict(cfg, tpu_image_buckets=[[128, 128]], image_min_size=128, image_max_size=128,
                  **TRAIN_CPU_COMMON, **TRAIN_CPU_CHECK[model_type])
+    seed = 1
+    if cfg["num_classes"] == 81:
+        small["scales"], seed = COCO_CPU_SCALES, COCO_CPU_SEED
     inputs = small_train_inputs(PIXEL_SCALE.get(backbone, 1.0))
     if model_type == "fpn":
         anchors = 3 * sum((-(-128 // s)) ** 2 for s in small["anchor_stride_list"])
@@ -1543,13 +1643,14 @@ def check_training_against_cpu(model_type, cfg, card, backbone="resnet50"):
         bf16_small_step_against_cpu(model_type, small, draws, inputs, card, backbone)
         return
     path = describe(model_type, backbone, cfg)
-    cm, cg = small_training_step(model_type, small, "cpu", draws, inputs, backbone=backbone)
+    cm, cg = small_training_step(model_type, small, "cpu", draws, inputs, backbone=backbone,
+                                 seed=seed)
     require(cm["num_rpn_fg"] > 0, f"{path} small step without an RPN foreground: {cm}")
     for cudnn, tol in ((False, GRAD_TOL), (True, CUDNN_GRAD_TOL)):
         torch.backends.cudnn.enabled = cudnn
         try:
             gm, gg = small_training_step(model_type, small, "cuda", draws, inputs,
-                                         backbone=backbone)
+                                         backbone=backbone, seed=seed)
         finally:
             torch.backends.cudnn.enabled = True
         for k in cm:
@@ -1607,9 +1708,9 @@ def small_train_inputs(pixel_scale):
     return image, hw, gt, gt_mask, gt_labels
 
 
-def make_train_items(seed: int = 0):
+def make_train_items(seed: int = 0, num_classes: int = 21):
     """The 8 request images with 1-8 random gt boxes each: (raw RGB, boxes
-    [n, 4] normalized yxyx, labels [n])."""
+    [n, 4] normalized yxyx, labels [n] in 1..num_classes - 1)."""
     rng = np.random.RandomState(seed + 1)
     items = []
     for img in make_requests(seed):
@@ -1617,7 +1718,7 @@ def make_train_items(seed: int = 0):
         lo = rng.uniform(0.0, 0.7, (n, 2))
         hi = np.minimum(lo + rng.uniform(0.08, 0.6, (n, 2)), 1.0)
         boxes = np.concatenate([lo, hi], 1).astype(np.float32)
-        items.append((img, boxes, rng.randint(1, 21, n).astype(np.int32)))
+        items.append((img, boxes, rng.randint(1, num_classes, n).astype(np.int32)))
     return items
 
 
@@ -1712,7 +1813,8 @@ def calibrate_frozen_bn(det, forward):
             h.remove()
 
 
-def drive_training(model_type, card, dtype="float32", backbone="resnet50", steps=None):
+def drive_training(model_type, card, dtype="float32", backbone="resnet50", steps=None,
+                   data_type="pascal"):
     """Training at full width, stock config, seeded random weights: 8 steps
     at B=1 (landscape and portrait interleaved), 3 at B=4 (landscape); FPN
     also 2 at B=1 with `tpu_roi_align_fused_levels` False. Under bfloat16
@@ -1720,8 +1822,9 @@ def drive_training(model_type, card, dtype="float32", backbone="resnet50", steps
     and for Faster R-CNN the peak memory of a B=4 step with and without
     `tpu_remat`. `steps` = (B=1, B=4, per level) overrides the counts. The
     frozen parameters (C4's conv1 and conv2, VGG16's blocks 1-2) must keep
-    their bits. Returns ({path: launch counts}, the B=1 median step ms)."""
-    cfg = dict(config_factory("pascal", model_type), tpu_compute_dtype=dtype)
+    their bits. `data_type` "coco" takes the COCO config (12 anchors a cell,
+    81 classes). Returns ({path: launch counts}, the B=1 median step ms)."""
+    cfg = dict(config_factory(data_type, model_type), tpu_compute_dtype=dtype)
     bf16 = dtype == "bfloat16"
     check_training_against_cpu(model_type, cfg, card, backbone)
     det = model_factory(model_type, backbone, cfg, device="cuda", seed=0)
@@ -1729,7 +1832,7 @@ def drive_training(model_type, card, dtype="float32", backbone="resnet50", steps
     step = make_train_step(det, opt)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.RandomState(0)
-    items = make_train_items()
+    items = make_train_items(num_classes=cfg["num_classes"])
     n1, n4, n_per_level = steps or (BF16_STEPS if bf16 else (len(items), 3, 2))
     b1 = [train_batch([it], cfg, rng) for it in items[:n1]]
     landscape = [it for it in items if it[0].shape[0] < it[0].shape[1]][:BATCH]
@@ -1743,7 +1846,8 @@ def drive_training(model_type, card, dtype="float32", backbone="resnet50", steps
     step(b1[0], gen)  # warm-up: cuDNN algorithm choice, allocator
     step(b4[0], gen)
     suffix = "_bf16" if bf16 else ""
-    name = PATH_NAME[model_type] + (f"_{backbone}" if backbone != "resnet50" else "") + suffix
+    name = (PATH_NAME[model_type] + (f"_{backbone}" if backbone != "resnet50" else "")
+            + ("_coco" if data_type == "coco" else "") + suffix)
     paths, b1_ms = {}, None
     for path, batches in ((f"{name}_train_b1", b1), (f"{name}_train_b4", b4)):
         paths[path], ms = train_path(path, step, batches, gen, cfg,
@@ -2012,8 +2116,8 @@ def write_rehearsal_tree(root: Path):
     return voc, records
 
 
-def trainer_config(model_type):
-    cfg = dict(config_factory("pascal", model_type))
+def trainer_config(model_type, data_type="pascal"):
+    cfg = dict(config_factory(data_type, model_type))
     scale = TRAINER_LR / cfg["learning_rate_multi_lrs"][0]
     cfg["learning_rate_multi_lrs"] = [lr * scale for lr in cfg["learning_rate_multi_lrs"]]
     return cfg
@@ -2062,19 +2166,14 @@ def trainer_profile(trainer, batches, steps, card):
     return 1 - busy / wall
 
 
-def drive_trainer(model_type, voc, records, bare_ms, card):
-    """The trainer path at full width (stock Pascal config, the rehearsal's
-    learning rate, B=1): `dataset_factory` batches from JPEG TFRecords ->
-    `Trainer.train` (prefetch; a checkpoint at the last step) -> a fresh
+def train_and_restore(model_type, cfg, data_type, data_cfg, logs, name, bare_ms, card):
+    """`Trainer.train` at full width, B=1: TRAINER_STEPS steps over
+    `dataset_factory(data_type, "train", data_cfg)` (prefetch; a checkpoint
+    at the last step), launches and sample counts checked -> a fresh
     `Trainer` on the same directory restores bit-equal parameters, traces
     and step -> one more step of each on one batch and one set of draws
-    gives equal losses -> `eval_pascal` from the checkpoint over the test
-    JPEGs writes 20 result files and 20 APs in [0, 1]. Returns {path:
-    launch counts}."""
-    cfg = trainer_config(model_type)
-    name = PATH_NAME[model_type]
-    logs = str(voc.parent.parent / f"logs_{model_type}")
-    data_cfg = {"model_config": cfg, "tf_records_list": records, "batch_size": 1, "seed": 0}
+    gives equal losses. Returns (the trainer, its plain step function, the
+    launch counts of the steps)."""
     det = model_factory(model_type, "resnet50", cfg, device="cuda")
     trainer = Trainer(det, logs, logging_every_n_steps=TRAINER_STEPS // 2,
                       summary_every_n_steps=TRAINER_STEPS, saving_every_n_steps=TRAINER_STEPS,
@@ -2091,7 +2190,7 @@ def drive_trainer(model_type, voc, records, bare_ms, card):
 
     trainer.step_fn = timed_step
     reset_launches()
-    trainer.train(dataset_factory("pascal", "train", data_cfg), 1, TRAINER_STEPS)
+    trainer.train(dataset_factory(data_type, "train", data_cfg), 1, TRAINER_STEPS)
     launches = launch_counts()
     expected = {k: PER_STEP[model_type].get(k, 0) * TRAINER_STEPS
                 + PREDICT_LAUNCHES[model_type].get(k, 0) for k in KERNELS}
@@ -2107,11 +2206,12 @@ def drive_trainer(model_type, voc, records, bare_ms, card):
     ckpts = sorted(os.listdir(logs))
     require(f"ckpt_{TRAINER_STEPS:08d}.pt" in ckpts, f"{name}_trainer checkpoints {ckpts}")
     med = float(np.median(np.diff(ends))) * 1e3
-    print(f"{name}_trainer: {TRAINER_STEPS} steps at B=1 from JPEG TFRecords, step wall time "
+    recorded = RECORDED_BARE_STEP_MS.get(name)
+    print(f"{name}_trainer: {TRAINER_STEPS} steps at B=1 from {data_type} JPEGs, step wall time "
           f"(pipeline, copy, step; one synchronise a step) median {med:.2f} ms = "
           f"{1e3 / med:.3f} images/s, against {bare_ms:.2f} ms for the bare step of this run's "
-          f"{name}_train_b1 (recorded earlier: {RECORDED_BARE_STEP_MS[model_type]} ms); "
-          "losses step 1 "
+          f"{name}_train_b1"
+          + (f" (recorded earlier: {recorded} ms)" if recorded else "") + "; losses step 1 "
           f"{metrics[0]['total_loss']:.4f}, step {TRAINER_STEPS} "
           f"{metrics[-1]['total_loss']:.4f}  ({card})")
 
@@ -2124,7 +2224,7 @@ def drive_trainer(model_type, voc, records, bare_ms, card):
     require(all(torch.equal(t, restored.optimizer.trace[k])
                 for k, t in trainer.optimizer.trace.items()), "restored traces differ")
     # one more step of each on the same batch and draws: equal losses
-    batches = dataset_factory("pascal", "train", dict(data_cfg, seed=1))
+    batches = dataset_factory(data_type, "train", dict(data_cfg, seed=1))
     batch = next(batches)
     batches.close()
     cont = [{k: float(v) for k, v in t.step_fn(t._to_device(batch),
@@ -2135,6 +2235,25 @@ def drive_trainer(model_type, voc, records, bare_ms, card):
           f"parameters ({len(state)} tensors), traces ({len(trainer.optimizer.trace)}) and "
           f"count; the next step of both on one batch and one set of draws gives equal losses "
           f"(total {cont[0]['total_loss']:.6f})")
+    del det2, restored
+    return trainer, plain_step, launches
+
+
+def drive_trainer(model_type, voc, records, bare_ms, card):
+    """The trainer path at full width (stock Pascal config, the rehearsal's
+    learning rate, B=1): `dataset_factory` batches from JPEG TFRecords ->
+    `Trainer.train` (prefetch; a checkpoint at the last step) -> a fresh
+    `Trainer` on the same directory restores bit-equal parameters, traces
+    and step -> one more step of each on one batch and one set of draws
+    gives equal losses -> `eval_pascal` from the checkpoint over the test
+    JPEGs writes 20 result files and 20 APs in [0, 1]. Returns {path:
+    launch counts}."""
+    cfg = trainer_config(model_type)
+    name = PATH_NAME[model_type]
+    logs = str(voc.parent.parent / f"logs_{model_type}")
+    data_cfg = {"model_config": cfg, "tf_records_list": records, "batch_size": 1, "seed": 0}
+    trainer, plain_step, launches = train_and_restore(model_type, cfg, "pascal", data_cfg, logs,
+                                                      name, bare_ms, card)
 
     # the eval command line from the checkpoint over the test JPEGs
     result_dir = str(voc.parent.parent / f"results_{model_type}")
@@ -2168,9 +2287,104 @@ def drive_trainer(model_type, voc, records, bare_ms, card):
     trainer.train_one_epoch(pipeline, steps=2)  # warm-up, fills the queue
     trainer_profile(trainer, pipeline, 4, card)
     pipeline.close()
-    del det, det2, trainer, restored
+    del trainer
     torch.cuda.empty_cache()
     return {f"{name}_trainer": launches, f"{name}_trainer_eval": eval_launches}
+
+
+def drive_coco_trainer(root: Path, bare_ms, card):
+    """The COCO trainer and eval paths at full width (stock COCO config at
+    the rehearsal's learning rate, B=1): the port's `coco_rehearsal.generate`
+    writes 16 train and 16 val procedural 600x800 JPEGs and their instances
+    JSONs; `train_and_restore` over `dataset_factory("coco", "train", ...)`
+    (`frcnn_coco_trainer`); `eval_coco.main` from the checkpoint over the
+    val JPEGs (`frcnn_coco_eval`: K1 once a batch and once an image at
+    [80, 300] -> 100) writes a results JSON that parses, with 12 stats in
+    [-1, 1]; the non-crowd ground truth written as detections scores AP
+    @[.50:.95] exactly 1.0. Returns {path: launch counts}."""
+    t = time.perf_counter()
+    generate_coco(str(root), TRAINER_TRAIN, TRAINER_TEST, seed=0)
+    images, train_json, val_json = (str(root / "images"), str(root / "instances_train.json"),
+                                    str(root / "instances_val.json"))
+    print(f"COCO rehearsal set: {TRAINER_TRAIN} train + {TRAINER_TEST} val images at 600x800 "
+          f"in {time.perf_counter() - t:.1f} s")
+    cfg = trainer_config("faster_rcnn", "coco")
+    logs = str(root / "logs")
+    data_cfg = {"model_config": cfg, "annotation_file": train_json, "image_dir": images,
+                "batch_size": 1, "seed": 0}
+    trainer, _, launches = train_and_restore("faster_rcnn", cfg, "coco", data_cfg, logs,
+                                             "frcnn_coco", bare_ms, card)
+    del trainer
+    torch.cuda.empty_cache()
+
+    results_json = str(root / "results.json")
+    argv = [logs, "--annotation_file", val_json, "--image_dir", images, "--results_json",
+            results_json, "--batch_size", str(TRAINER_EVAL_BATCH)]
+    n_images = len(CocoDataset(val_json, images))
+    reset_launches()
+    with NmsShapes() as shapes:
+        t = time.perf_counter()
+        stats = eval_coco.main(argv)
+        eval_s = time.perf_counter() - t
+    eval_launches = launch_counts()
+    batches_n = -(-n_images // TRAINER_EVAL_BATCH)  # every image in the 608x1008 bucket
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["nms_alive_sorted"] = batches_n + n_images
+    print(f"frcnn_coco_eval: kernel launches {eval_launches} (expected {expected}: "
+          f"{batches_n} batches, {n_images} images)")
+    require(eval_launches == expected, f"frcnn_coco_eval launches {eval_launches}")
+    shapes.check("frcnn_coco_eval", {
+        (TRAINER_EVAL_BATCH, cfg["rpn_proposal_test_pre_nms_sample_number"],
+         cfg["rpn_proposal_test_after_nms_sample_number"]): batches_n,
+        (80, cfg["rpn_proposal_test_after_nms_sample_number"], 100): n_images})
+    with open(val_json) as f:
+        gt = json.load(f)
+    results, per_image = coco_results(results_json, gt)
+    require(stats.shape == (12,) and bool(((stats >= -1) & (stats <= 1)).all()),
+            f"COCO stats {stats}")
+    print(f"frcnn_coco_eval: eval_coco from the step-{TRAINER_STEPS} checkpoint over "
+          f"{n_images} val JPEGs in {eval_s:.2f} s (model build, restore, decode, inference, "
+          f"post-processing, JSON, evaluation), {len(results)} results (at most "
+          f"{max(per_image.values())} an image), {len({r['category_id'] for r in results})} "
+          f"categories detected, AP @[.50:.95] {stats[0]:.4f}, AP @.50 {stats[1]:.4f} after "
+          f"{TRAINER_STEPS} steps from random weights  ({card})")
+    # the same command line from the seeded detector before training, whose
+    # serving path detects (the 12 steps above may leave no detection at all,
+    # and then no result reaches the JSON)
+    init = str(root / "init.npz")
+    save_params(init, model_factory("faster_rcnn", "resnet50", cfg, device="cuda", seed=0))
+    argv[0], argv[argv.index(results_json)] = init, str(root / "init_results.json")
+    init_stats = eval_coco.main(argv)
+    results, per_image = coco_results(str(root / "init_results.json"), gt)
+    require(len(results) > 0 and bool(((init_stats >= -1) & (init_stats <= 1)).all()),
+            f"results of the untrained detector: per image {per_image}, stats {init_stats}")
+    truth = [{"image_id": a["image_id"], "category_id": a["category_id"], "bbox": a["bbox"],
+              "score": 1.0} for a in gt["annotations"] if not a["iscrowd"]]
+    gt_stats = evaluate_coco_detections(val_json, truth)
+    require(gt_stats[0] == 1.0, f"ground truth as detections: stats {gt_stats}")
+    print(f"frcnn_coco_eval: from the untrained detector {len(results)} results (per image "
+          f"{min(per_image.values())}..{max(per_image.values())}), "
+          f"{len({r['category_id'] for r in results})} categories, parsed back; the ground "
+          f"truth as detections: AP @[.50:.95] 1.0  ({card})")
+    return {"frcnn_coco_trainer": launches, "frcnn_coco_eval": eval_launches}
+
+
+def coco_results(path, gt):
+    """A results JSON of `eval_coco` parsed back and checked against the
+    ground truth's images and COCO's category ids -> (results, {image id:
+    results}), at most 100 an image."""
+    with open(path) as f:
+        results = json.load(f)
+    ids = {img["id"] for img in gt["images"]}
+    per_image = dict.fromkeys(ids, 0)
+    for r in results:
+        x, y, w, h = r["bbox"]
+        require(r["image_id"] in ids and r["category_id"] in COCO_CAT_IDS
+                and 0.0 <= r["score"] <= 1.0 and np.isfinite([x, y, w, h]).all()
+                and w > 0 and h > 0 and x >= 0 and y >= 0, f"result {r}")
+        per_image[r["image_id"]] += 1
+    require(max(per_image.values()) <= 100, f"results per image {per_image}")
+    return results, per_image
 
 
 def main() -> int:
@@ -2204,6 +2418,11 @@ def main() -> int:
                                                  served[model_type])[0]
     paths["frcnn_vgg16_bf16"] = drive_path("faster_rcnn", requests, card, "bfloat16",
                                            served["vgg16"], "vgg16", "frcnn_vgg16_bf16")[0]
+    paths["frcnn_coco"], served["coco"] = drive_path("faster_rcnn", requests, card,
+                                                     path="frcnn_coco", data_type="coco")
+    paths["frcnn_coco_bf16"] = drive_path("faster_rcnn", requests, card, "bfloat16",
+                                          served["coco"], path="frcnn_coco_bf16",
+                                          data_type="coco")[0]
     for backbone in ("resnet101", "resnet152"):
         for model_type in ("faster_rcnn", "fpn"):
             path = f"{PATH_NAME[model_type]}_{backbone}"
@@ -2216,6 +2435,9 @@ def main() -> int:
         trained, bare_ms[model_type] = drive_training(model_type, card)
         paths.update(trained)
     paths.update(drive_training("faster_rcnn", card, backbone="vgg16", steps=VGG16_STEPS)[0])
+    trained, bare_ms["frcnn_coco"] = drive_training("faster_rcnn", card, steps=COCO_STEPS,
+                                                    data_type="coco")
+    paths.update(trained)
     for model_type in ("fpn", "faster_rcnn"):
         paths.update(drive_training(model_type, card, "bfloat16")[0])
     paths.update(drive_training("faster_rcnn", card, "bfloat16", "vgg16", VGG16_STEPS)[0])
@@ -2226,6 +2448,7 @@ def main() -> int:
         voc, records = write_rehearsal_tree(Path(tmp))
         for model_type in ("faster_rcnn", "fpn"):
             paths.update(drive_trainer(model_type, voc, records, bare_ms[model_type], card))
+        paths.update(drive_coco_trainer(Path(tmp) / "coco", bare_ms["frcnn_coco"], card))
     print(f"trainer phases done at {time.perf_counter() - t_start:.1f} s")
 
     per_level_shape = "B=1 N=256 S=14 C=256, one launch per level P2..P5"
@@ -2272,6 +2495,8 @@ def main() -> int:
         for key in ("terms", "reductions", "cast_ms", "float32_planes_ms"):
             if key in rec:
                 row[key] = rec[key]
+        if name == "nms_alive_sorted":  # every shape of the kernel phase, COCO's too
+            row["per_shape"] = records
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -137,10 +137,12 @@ def test_cli_help(module):
     assert proc.stdout.startswith("usage:")
 
 
-@pytest.mark.parametrize("flags,item", [(["--data_type", "coco"], "ROADMAP item 7")])
+@pytest.mark.parametrize("flags,item", [(["--data_type", "coco"], "--model_type fpn")])
 def test_train_refuses_what_is_not_ported(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train_cli.main(["--device", "cpu", "--tf_records_dir", "unused", *flags])
+    """`--data_type coco` is ported (tests/test_torch_coco_cli.py); COCO FPN
+    has no config in either package, and the port refuses it as JAX does."""
+    with pytest.raises(ValueError, match="dataset type coco and model type fpn"):
+        train_cli.main(["--device", "cpu", *flags, *item.split()])
 
 
 @pytest.mark.parametrize("flag", ["--data_parallel", "--multihost", "--backbone_weights=x"])

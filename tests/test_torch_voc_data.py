@@ -299,8 +299,12 @@ def test_dataset_factory_pascal_matches_jax(voc_root, records):
 
 @pytest.mark.parametrize("mode", ["train", "val"])
 def test_dataset_factory_coco_is_not_ported(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        port_factory_mod.dataset_factory("coco", mode, dict(model_config=_cfg()))
+    """COCO is ported now (the name is older): its modes dispatch to the COCO
+    data functions as JAX's do, so a config without an annotation file raises
+    the same KeyError in both (tests/test_torch_coco_data.py holds the data)."""
+    for factory in (port_factory_mod.dataset_factory, jax_factory_mod.dataset_factory):
+        with pytest.raises(KeyError, match="annotation_file"):
+            factory("coco", mode, dict(model_config=_cfg()))
 
 
 def test_dataset_factory_rejects_unknown_modes():

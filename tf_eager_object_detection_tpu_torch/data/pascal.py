@@ -67,10 +67,13 @@ def decode_jpeg(data: bytes) -> np.ndarray:
 
 
 def _read_image(path: str) -> np.ndarray:
-    """An image file -> RGB uint8 [H, W, 3]."""
+    """An image file -> RGB uint8 [H, W, 3]; IOError if it cannot be read."""
     if cv2 is not None:
-        return cv2.imread(path)[..., ::-1]
-    return np.asarray(_pil().open(path).convert("RGB"))
+        img = cv2.imread(path)
+        if img is None:
+            raise IOError(f"cannot read {path}")
+        return img[..., ::-1]
+    return np.asarray(_pil().open(path).convert("RGB"))  # PIL raises an OSError (IOError)
 
 
 def parse_pascal_example_raw(record: bytes):

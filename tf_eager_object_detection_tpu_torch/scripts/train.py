@@ -3,12 +3,13 @@
     python -m tf_eager_object_detection_tpu_torch.scripts.train --model_type faster_rcnn \
         --backbone resnet50 --data_type pascal --tf_records_dir /data/tfrecords \
         --logs_dir /tmp/logs --epochs 14
+    python -m tf_eager_object_detection_tpu_torch.scripts.train --data_type coco \
+        --coco_annotation_file instances_train.json --coco_image_dir train_images
 
 Runs on the card unless `--device cpu` is given. `--compute_dtype bfloat16`
 trains with bfloat16 compute (parameters, momentum and checkpoints stay
 float32). Not ported yet: `--data_parallel`, `--multihost` and
-`--spatial_partition` (ROADMAP item 8), `--backbone_weights` (item 9);
-`--data_type coco` raises (item 7).
+`--spatial_partition` (ROADMAP item 8), `--backbone_weights` (item 9).
 """
 
 import argparse
@@ -25,6 +26,10 @@ def parse_args(argv=None):
     p.add_argument("--data_type", default="pascal", choices=["pascal", "coco"])
     p.add_argument("--tf_records_dir", default=None,
                    help="directory holding the *train*.tfrecords shards")
+    p.add_argument("--coco_annotation_file", default=None,
+                   help="with --data_type coco: the instances JSON")
+    p.add_argument("--coco_image_dir", default=None,
+                   help="with --data_type coco: the directory of its images")
     p.add_argument("--logs_dir", default="./logs")
     p.add_argument("--restore_ckpt_path", default=None,
                    help="checkpoint directory to start from (default: the latest in --logs_dir)")
@@ -48,9 +53,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.data_type == "coco":
-        raise NotImplementedError("--data_type coco: the COCO data path is not ported yet "
-                                  "(ROADMAP item 7)")
     from tf_eager_object_detection_tpu_torch.config.config_factory import (
         apply_config_overrides,
         config_factory,
@@ -72,16 +74,22 @@ def main(argv=None):
     detector = model_factory(args.model_type, args.backbone, cfg, device=args.device,
                              seed=args.seed)
 
-    records = sorted(glob.glob(os.path.join(args.tf_records_dir or ".", "*train*.tfrecords")))
-    if not records:
-        raise FileNotFoundError(f"no *train*.tfrecords under {args.tf_records_dir}")
-    batches = dataset_factory("pascal", "train", {
+    data_cfg = {
         "model_config": cfg,
-        "tf_records_list": records,
         "batch_size": cfg["tpu_train_batch_size_per_device"],
         "preprocessing_type": args.preprocessing_type,
         "seed": args.seed,
-    })
+    }
+    if args.data_type == "pascal":
+        records = sorted(glob.glob(os.path.join(args.tf_records_dir or ".",
+                                                "*train*.tfrecords")))
+        if not records:
+            raise FileNotFoundError(f"no *train*.tfrecords under {args.tf_records_dir}")
+        data_cfg["tf_records_list"] = records
+    else:
+        data_cfg["annotation_file"] = args.coco_annotation_file
+        data_cfg["image_dir"] = args.coco_image_dir
+    batches = dataset_factory(args.data_type, "train", data_cfg)
     trainer = Trainer(
         detector,
         train_dir=args.logs_dir,

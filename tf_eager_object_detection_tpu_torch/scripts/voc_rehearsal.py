@@ -14,11 +14,15 @@ rate (`--lr`, 2.5e-4: the stock 1e-3 diverges from random weights).
     python -m tf_eager_object_detection_tpu_torch.scripts.voc_rehearsal train --steps 16000
     python -m tf_eager_object_detection_tpu_torch.scripts.voc_rehearsal eval
     python -m tf_eager_object_detection_tpu_torch.scripts.voc_rehearsal run   # all three
+    python -m tf_eager_object_detection_tpu_torch.scripts.voc_rehearsal coco
 
 `run` and `eval` exit 1 when the mAP is below 0.85, as the JAX script does.
+`coco` scores the trained checkpoint on the test split through `eval_coco`
+(the test annotations written as a COCO file, difficult objects as
+`iscrowd`) and prints `COCO_REHEARSAL {json}` with the 12 COCO stats.
 Training is one process (the JAX script's `--chunks` worked around a
-leak of its TPU runtime). The `coco` and `consistency` commands are not
-ported yet (ROADMAP items 7 and 8).
+leak of its TPU runtime). The `consistency` command is not ported yet
+(ROADMAP item 8).
 """
 
 from __future__ import annotations
@@ -266,10 +270,85 @@ def cmd_eval(args):
     return summary
 
 
+def _voc_to_coco_json(voc_root: str, split: str, out_path: str) -> int:
+    """Write the split's VOC annotations as a COCO annotation file ->
+    the number of annotations. Categories 1..20 in PASCAL_CLASSES order;
+    bbox [x, y, w, h] from the 1-based VOC corners with the +1 width and
+    height of `coco_eval.coco_results_for_image`; difficult -> iscrowd."""
+    from tf_eager_object_detection_tpu_torch.data.voc import parse_voc_xml, read_image_set
+
+    ids = read_image_set(os.path.join(voc_root, "ImageSets", "Main", split + ".txt"))
+    images, annotations = [], []
+    for image_id in ids:
+        ann = parse_voc_xml(os.path.join(voc_root, "Annotations", f"{image_id}.xml"))
+        images.append({"id": int(image_id), "file_name": f"{image_id}.jpg",
+                       "height": ann["height"], "width": ann["width"]})
+        for o in ann["objects"]:
+            xmin, ymin, xmax, ymax = o["bbox"]
+            w, h = xmax - xmin + 1.0, ymax - ymin + 1.0
+            annotations.append({
+                "id": len(annotations) + 1,
+                "image_id": int(image_id),
+                "category_id": PASCAL_CLASSES.index(o["name"]) + 1,
+                "bbox": [float(xmin - 1.0), float(ymin - 1.0), float(w), float(h)],
+                "area": float(w * h),
+                "iscrowd": int(o.get("difficult", 0)),
+            })
+    with open(out_path, "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": i + 1, "name": c}
+                                  for i, c in enumerate(PASCAL_CLASSES)]}, f)
+    return len(annotations)
+
+
+# the checkpoint is a Pascal model: its class count, anchor scales, pixel
+# means and per-image caps go into the COCO config
+COCO_EVAL_OVERRIDES = [
+    "num_classes=21",
+    "scales=[8, 16, 32]",
+    "bgr_pixel_means=[103.939, 116.779, 123.68]",
+    "max_objects_per_class_per_image=50",
+    "max_objects_per_image=50",
+]
+
+
+def cmd_coco(args):
+    """Score the trained checkpoint on the test split with the COCO
+    evaluator through `eval_coco`."""
+    from tf_eager_object_detection_tpu_torch.scripts.coco_rehearsal import parse_stats
+
+    voc_root, _, logs = _dirs(args)
+    ann_file = os.path.join(args.root, "coco_test_annotations.json")
+    n_ann = _voc_to_coco_json(voc_root, "test", ann_file)
+    results_json = os.path.join(args.root,
+                                f"coco_results_{args.model_type}_{args.backbone}.json")
+    cmd = _module("eval_coco") + [
+        logs, "--annotation_file", ann_file,
+        "--image_dir", os.path.join(voc_root, "JPEGImages"),
+        "--model_type", args.model_type, "--backbone", args.backbone,
+        "--results_json", results_json,
+        "--batch_size", str(args.eval_batch_size), "--device", args.device,
+    ]
+    for ov in COCO_EVAL_OVERRIDES + args.config_override:
+        cmd += ["--config_override", ov]
+    out = _run(cmd, capture_output=True, text=True)
+    sys.stderr.write(out.stderr[-1000:])
+    print(out.stdout[-2500:])
+    summary = {
+        "proof": "coco_rehearsal",
+        "model_type": args.model_type,
+        "backbone": args.backbone,
+        "n_gt_annotations": n_ann,
+        "metrics": parse_stats(out.stdout),
+    }
+    print("COCO_REHEARSAL " + json.dumps(summary))
+    return summary
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("cmd", choices=["gen", "train", "eval", "run"])
+    p.add_argument("cmd", choices=["gen", "train", "eval", "run", "coco", "consistency"])
     p.add_argument("--root", default=os.path.join(tempfile.gettempdir(), "voc_rehearsal"))
     p.add_argument("--n_train", type=int, default=600)
     p.add_argument("--n_test", type=int, default=150)
@@ -280,7 +359,8 @@ def main(argv=None):
     p.add_argument("--lr", type=float, default=2.5e-4,
                    help="0 = use the config schedule (see --config_override)")
     p.add_argument("--config_override", action="append", default=[],
-                   help="passed through to the train and eval command lines")
+                   help="passed through to the train and eval command lines (for `coco`, "
+                        "after its Pascal overrides)")
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--compute_dtype", default=None, choices=[None, "float32", "bfloat16"],
                    help="passed to the train command line (evaluation takes it as "
@@ -292,8 +372,14 @@ def main(argv=None):
                         "--steps then counts additional steps")
     args = p.parse_args(argv)
 
+    if args.cmd == "consistency":
+        raise NotImplementedError("consistency: multi-device eval is not ported yet "
+                                  "(ROADMAP item 8)")
     if args.cmd == "gen":
         cmd_gen(args)
+        return 0
+    if args.cmd == "coco":
+        cmd_coco(args)
         return 0
     if args.cmd == "train":
         cmd_train(args)
