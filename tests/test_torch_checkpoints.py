@@ -11,8 +11,9 @@
   `predict`, equals the port's `predict`; the port's `load_params` of JAX
   `save_params`' file equals JAX `predict`; trained parameters go port ->
   `.npz` -> JAX -> `.npz` -> port bit for bit.
-- `ref_import/cli.py::load_checkpoint_params` reads the two formats and
-  raises for any other, naming ROADMAP item 9.
+- `ref_import/cli.py::load_checkpoint_params` reads the two formats; any
+  other path without an import flag raises, and a refused or unreadable
+  third-party file leaves the detector untouched.
 
 Predictions are compared with the tolerances of tests/test_torch_model.py
 (same config, image and score-layer scales): labels and validity exact,
@@ -320,12 +321,27 @@ def test_load_checkpoint_params_reads_the_port_formats(tmp_path, fmt):
 @pytest.mark.parametrize("case", ["tf_checkpoint_prefix", "keras_h5_flag", "fpn_tensorflow_flag",
                                   "tf_faster_rcnn_flag"])
 def test_load_checkpoint_params_other_formats_name_item_9(tmp_path, case):
+    """What is neither a checkpoint of the port nor a `.npz` (a TF prefix
+    without its flag) raises FileNotFoundError naming the import flags; a
+    third-party flag on a missing file raises from its reader (h5py's
+    OSError, tensorflow's NotFoundError), and FPN's
+    flag on Faster R-CNN refuses before reading; the detector is untouched.
+    (The importers themselves: tests/test_torch_ref_import.py.)"""
+    pytest.importorskip("h5py")
+    pytest.importorskip("tensorflow")
     path = str(tmp_path / "model.ckpt")
     args = _args(**{"keras_h5_flag": {"keras_h5": True},
                     "fpn_tensorflow_flag": {"use_fpn_tensorflow_model": True},
                     "tf_faster_rcnn_flag": {"use_tf_faster_rcnn_model": True}}.get(case, {}))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        load_checkpoint_params(_detector(), path, args)
+    error, match = {"tf_checkpoint_prefix": (FileNotFoundError, "--keras_h5"),
+                    "keras_h5_flag": (OSError, None),
+                    "fpn_tensorflow_flag": (ValueError, "model_type fpn"),
+                    "tf_faster_rcnn_flag": (Exception, "Failed to find any matching files")}[case]
+    det = _detector()
+    before = {k: v.clone() for k, v in det.state_dict().items()}
+    with pytest.raises(error, match=match):
+        load_checkpoint_params(det, path, args)
+    assert all(torch.equal(v, before[k]) for k, v in det.state_dict().items())
 
 
 def test_load_checkpoint_params_of_an_empty_dir_raises(tmp_path):

@@ -147,6 +147,11 @@ def test_train_refuses_what_is_not_ported(flags, item):
 
 @pytest.mark.parametrize("flag", ["--data_parallel", "--multihost", "--backbone_weights=x"])
 def test_train_has_no_option_of_later_items(flag, capsys):
+    """Item 8's flags are not ported; `--backbone_weights` (item 9(a)) is,
+    and is passed on (tests/test_torch_ref_import.py loads it)."""
+    if flag.startswith("--backbone_weights"):
+        assert train_cli.parse_args([flag]).backbone_weights == "x"
+        return
     with pytest.raises(SystemExit):
         train_cli.parse_args([flag])
     assert "unrecognized arguments" in capsys.readouterr().err

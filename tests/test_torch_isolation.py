@@ -263,6 +263,51 @@ def test_vgg16_and_slim_fpn_run_on_cpu_without_importing_jax():
     assert proc.stdout.strip().endswith("OK")
 
 
+def test_importers_run_without_h5py_tensorflow_or_jax():
+    """The card's machine has neither h5py nor tensorflow: the importers and
+    the command lines import without them, the `.h5` and TF-checkpoint
+    loaders raise ImportError naming their package, and the `.pth` ->
+    pickle path works."""
+    proc = _run(
+        """
+        import os, sys, tempfile
+        sys.modules["h5py"] = None  # import h5py -> ImportError
+        sys.modules["tensorflow"] = None
+        import numpy as np
+        import torch
+        from tf_eager_object_detection_tpu_torch.ref_import import (
+            cli, importers, name_maps, pytorch_convert,
+        )
+        from tf_eager_object_detection_tpu_torch.scripts import infer, train
+
+        tree = {"extractor": {"conv1_conv": {"kernel": np.zeros((7, 7, 3, 64), np.float32)}}}
+        try:
+            importers.load_keras_h5(tree, "w.h5", ("extractor",))
+            raise SystemExit("no ImportError")
+        except ImportError as e:
+            assert "h5py" in str(e), e
+        try:
+            importers.load_tf_checkpoint_dict("model.ckpt")
+            raise SystemExit("no ImportError")
+        except ImportError as e:
+            assert "tensorflow" in str(e), e
+        with tempfile.TemporaryDirectory() as d:
+            torch.save({"w": torch.ones(2, 3, 1, 1)}, os.path.join(d, "m.pth"))
+            out = pytorch_convert.convert_pth_to_dict(os.path.join(d, "m.pth"),
+                                                      os.path.join(d, "m.pkl"))
+            assert pytorch_convert.load_pickle_dict(os.path.join(d, "m.pkl"))["w"].shape == \
+                (1, 1, 3, 2) == out["w"].shape
+        assert len(name_maps.resnet_tf_faster_rcnn_map(50)) > 100
+        leaked = [m for m in ("h5py", "tensorflow") if sys.modules.get(m) is not None]
+        assert not leaked, leaked
+""" + _NO_JAX + """
+        print("OK")
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
 def test_chip_smoke_imports_only_the_port():
     proc = _run(
         """
@@ -272,6 +317,9 @@ def test_chip_smoke_imports_only_the_port():
         assert "tf_eager_object_detection_tpu_torch.models.faster_rcnn" in sys.modules
         assert "tf_eager_object_detection_tpu_torch.models.fpn" in sys.modules
         assert "tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_cuda" in sys.modules
+        assert "tf_eager_object_detection_tpu_torch.ref_import.importers" in sys.modules
+        assert "tf_eager_object_detection_tpu_torch.ref_import.pytorch_convert" in sys.modules
+        assert not any(sys.modules.get(m) for m in ("h5py", "tensorflow"))
         print("OK")
         """
     )
@@ -299,4 +347,25 @@ def test_no_import_of_jax_or_the_jax_package(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module)
     bad = [n for n in names if n.split(".")[0] in ("jax", "flax", "tf_eager_object_detection_tpu")]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, _ROOT))
+def test_no_module_level_import_of_h5py_or_tensorflow(path):
+    """The card's machine has neither: a module of the port (or
+    `chip_smoke.py`) may import them only inside the function that reads
+    their format."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names, todo = [], list(tree.body)
+    while todo:  # what runs at import: every statement outside a function body
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+        todo += list(ast.iter_child_nodes(node))
+    bad = [n for n in names if n.split(".")[0] in ("h5py", "tensorflow")]
     assert not bad, bad

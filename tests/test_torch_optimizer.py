@@ -11,6 +11,9 @@ masks against the JAX package's, on the CPU.
   traces within rtol 1e-6, atol 1e-9: both run the same float32 operations
   in the same order, so only the placement of a rounding may differ.
   Frozen tensors must not move at all.
+- Three Adam steps across the same boundary against JAX's optax chain,
+  parameters and both moments within the same tolerance; a momentum or
+  Adam state restored from a checkpoint continues bit-equal.
 - The trainable and weight-decay masks of the port's Faster R-CNN and FPN
   ResNet-50 against JAX's masks of the same models (exact), and the VGG16
   policy as a predicate.
@@ -42,7 +45,9 @@ from tf_eager_object_detection_tpu_torch.ref_import.from_jax import (
     load_jax_params,
     parameter_tree_from_jax,
 )
+from tf_eager_object_detection_tpu_torch.training.checkpoints import CheckpointManager
 from tf_eager_object_detection_tpu_torch.training.optimizer import (
+    AdamOptimizer,
     make_lr_schedule,
     make_optimizer,
 )
@@ -170,10 +175,114 @@ def test_three_momentum_steps_across_a_boundary_match_jax(model_type, fused, bia
                             if model_type == "faster_rcnn" else set())
 
 
-@pytest.mark.parametrize("opt_type,error", [("adam", NotImplementedError), ("sgd", ValueError)])
+@pytest.mark.parametrize("bias_double", [False, True], ids=["bias_x1", "bias_x2"])
+@pytest.mark.parametrize("model_type", ["faster_rcnn", "fpn"])
+def test_three_adam_steps_across_a_boundary_match_jax(model_type, bias_double):
+    """`optimizer_type='adam'` against JAX's optax chain (decay, bias x2,
+    `optax.adam`, frozen -> 0) over three steps with the same random
+    gradients: the learning rate of the first step and of the step after
+    the boundary (the third: the schedule reads the count of the steps
+    before), the parameters and both moments within STEP_TOL (the same
+    float32 operations; the bias corrections' powers may round apart in
+    the last bit); frozen tensors do not move and have no moments."""
+    cfg = dict(weight_decay=0.01, optimizer_momentum=0.9, learning_rate_bias_double=bias_double,
+               learning_rate_multi_decay_steps=[1], learning_rate_multi_lrs=[0.1, 0.01],
+               optimizer_type="adam")
+    rng = np.random.RandomState(1)
+    flat = _toy_tree(rng)
+    params = jax.tree_util.tree_map(jax.numpy.asarray, unflatten_dict(flat, sep="/"))
+    frozen = {k for k, v in flatten_dict(
+        jax_freeze.trainable_mask(params, "resnet50", model_type), sep="/").items() if not v}
+    toy = _Toy(model_type)
+    load_jax_params(toy, flat)
+    freeze_(toy)
+    opt = make_optimizer(cfg, toy)
+    jopt = jax_optimizer(cfg, params, "resnet50", model_type)
+    state = jopt.init(params)
+    for step in range(3):
+        grads = {k: np.zeros_like(v) if k in frozen else rng.randn(*v.shape).astype(np.float32)
+                 for k, v in flat.items()}
+        updates, state = jopt.update(
+            jax.tree_util.tree_map(jax.numpy.asarray, unflatten_dict(grads, sep="/")),
+            state, params)
+        params = optax.apply_updates(params, updates)
+        port_grads = parameter_tree_from_jax(grads)
+        for name, p in toy.named_parameters():
+            p.grad = port_grads[name].clone() if p.requires_grad else None
+        assert opt.lr == pytest.approx(0.1 if step < 2 else 0.01, rel=1e-6)
+        assert np.float32(opt.lr) == np.asarray(jax_schedule(cfg)(step))
+        opt.step()
+    assert opt.count == 3
+    want = parameter_tree_from_jax({k: np.asarray(v) for k, v in
+                                    flatten_dict(params, sep="/").items()})
+    got = dict(toy.named_parameters())
+    start = parameter_tree_from_jax(flat)
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name].detach().numpy(), w.numpy(), **STEP_TOL,
+                                   err_msg=name)
+        assert (not torch.equal(got[name].detach(), start[name])) == got[name].requires_grad
+    adam = [leaf for leaf in jax.tree_util.tree_leaves(state, is_leaf=lambda x: hasattr(x, "nu"))
+            if hasattr(leaf, "nu")][0]
+    assert int(adam.count) == 3
+    for slot in ("mu", "nu"):
+        theirs = parameter_tree_from_jax({k: np.asarray(v) for k, v in
+                                          flatten_dict(getattr(adam, slot), sep="/").items()})
+        mine = getattr(opt, slot)
+        assert set(mine) == {n for n, p in got.items() if p.requires_grad}
+        for name, t in mine.items():
+            np.testing.assert_allclose(t.numpy(), theirs[name].numpy(), **STEP_TOL,
+                                       err_msg=f"{slot} {name}")
+
+
+@pytest.mark.parametrize("opt_type", ["momentum", "adam"])
+def test_restored_optimizer_continues_bit_equal(tmp_path, opt_type):
+    """The trainer's restore path (`CheckpointManager.save` / `restore`, as
+    `Trainer` runs it): after one step and a save, a fresh model and
+    optimizer restored from the checkpoint take the next step bit-equal to
+    the ones that wrote it (parameters, every state slot, the count)."""
+    cfg = dict(weight_decay=0.01, optimizer_momentum=0.9, learning_rate_bias_double=True,
+               learning_rate_multi_decay_steps=[1], learning_rate_multi_lrs=[0.1, 0.01],
+               optimizer_type=opt_type)
+    rng = np.random.RandomState(2)
+    models = []
+    for _ in range(2):
+        toy = _Toy("faster_rcnn")
+        load_jax_params(toy, _toy_tree(rng))
+        freeze_(toy)
+        models.append((toy, make_optimizer(cfg, toy)))
+    grads = [parameter_tree_from_jax({k: rng.randn(*v.shape).astype(np.float32)
+                                      for k, v in _toy_tree(rng).items()}) for _ in range(2)]
+
+    def step(toy, opt, g):
+        for name, p in toy.named_parameters():
+            p.grad = g[name].clone() if p.requires_grad else None
+        opt.step()
+
+    (first, first_opt), (second, second_opt) = models
+    step(first, first_opt, grads[0])
+    CheckpointManager(str(tmp_path)).save(first, first_opt)
+    assert CheckpointManager(str(tmp_path)).restore(second, second_opt) == 1
+    for toy, opt in models:
+        step(toy, opt, grads[1])
+    assert first_opt.count == second_opt.count == 2
+    for name, v in first.state_dict().items():
+        assert torch.equal(second.state_dict()[name], v), name
+    a, b = first_opt.state_dict(), second_opt.state_dict()
+    assert a.keys() == b.keys() == set(type(first_opt).SLOTS) | {"count"}
+    for slot in type(first_opt).SLOTS:
+        for name, t in a[slot].items():
+            assert torch.equal(b[slot][name], t), (slot, name)
+
+
+@pytest.mark.parametrize("opt_type,error", [("adam", None), ("sgd", ValueError)])
 def test_make_optimizer_refuses_what_is_not_ported(opt_type, error):
-    with pytest.raises(error, match="adam" if opt_type == "adam" else "momentum"):
-        make_optimizer(dict(LR_CONFIGS["fpn"], optimizer_type=opt_type), _Toy("fpn"))
+    """Adam is ported; any other type than momentum or adam raises."""
+    cfg = dict(LR_CONFIGS["fpn"], optimizer_type=opt_type)
+    if error is None:
+        assert isinstance(make_optimizer(cfg, _Toy("fpn")), AdamOptimizer)
+        return
+    with pytest.raises(error, match="momentum"):
+        make_optimizer(cfg, _Toy("fpn"))
 
 
 # -------------------------------------------------------------------- masks

@@ -6,6 +6,11 @@ around the RPN and RoI heads.
 - `im_detect(image, image_hw, scale)` / `im_detect_batch(images, image_hw,
   scales)` -> raw-head outputs with rois rescaled by 1/scale, for the eval
   writers.
+- `test_one_image(img_path, preprocessing_type, image_format)` -> the valid
+  detections of one image file on its own coordinates (`test_one_image_impl`).
+- `_anchor_targets_one` / `_proposal_targets_one`: the debug entry points
+  of the subclasses (`predict_rpn(s)`, `predict_roi(s)`) build one image's
+  RPN or RoI targets with them.
 - `_detection_loss(...)`: a subclass's `loss_fn` hands it the RPN outputs,
   its proposals and its RoI head; it draws the samplers' random numbers,
   builds the RPN and RoI targets, and returns the four losses and the
@@ -39,6 +44,7 @@ from __future__ import annotations
 import math
 from typing import Any, Dict
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -55,7 +61,8 @@ from tf_eager_object_detection_tpu_torch.ops.sampling import (
     proposal_target,
 )
 
-__all__ = ["ServingDetector", "resolve_device", "RESNET_DEPTHS", "BACKBONES"]
+__all__ = ["ServingDetector", "resolve_device", "read_image_file", "test_one_image_impl",
+           "RESNET_DEPTHS", "BACKBONES"]
 
 RESNET_DEPTHS = {"resnet50": 50, "resnet101": 101, "resnet152": 152}
 # the backbones of each model type, as the JAX `model_factory` builds them
@@ -71,6 +78,35 @@ def resolve_device(device) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def read_image_file(path: str) -> np.ndarray:
+    """An image file -> RGB uint8 [H, W, 3], as JAX `test_one_image_impl`
+    reads it: cv2, and on any exception (no cv2, or cv2 returning None for
+    a format it cannot decode, such as TGA) PIL."""
+    try:
+        import cv2
+
+        return cv2.imread(path)[..., ::-1]
+    except Exception:
+        from PIL import Image
+
+        return np.asarray(Image.open(path).convert("RGB"))
+
+
+def test_one_image_impl(detector, img_path, preprocessing_type="caffe", image_format=None):
+    """Load + preprocess + predict one image file with `detector.predict`
+    (JAX `models/faster_rcnn.py::test_one_image_impl`, reference
+    base_faster_rcnn_model.py:267-277) -> (boxes [N, 4] on the raw image's
+    coordinates, labels [N], scores [N]) of the valid detections, numpy."""
+    from tf_eager_object_detection_tpu_torch.data.preprocessing import preprocess_eval_image
+
+    padded, hw, scale, _, _ = preprocess_eval_image(
+        read_image_file(img_path), detector.cfg, preprocessing_type, image_format=image_format)
+    det = detector.predict(padded, hw)
+    v = det.valid.cpu().numpy()
+    return (det.boxes.cpu().numpy()[v] / scale, det.labels.cpu().numpy()[v],
+            det.scores.cpu().numpy()[v])
 
 
 class ServingDetector(nn.Module):
@@ -145,6 +181,59 @@ class ServingDetector(nn.Module):
 
     def _detect(self, images: torch.Tensor, image_hw: torch.Tensor):
         raise NotImplementedError
+
+    def test_one_image(self, img_path, preprocessing_type="caffe", image_format=None):
+        """One image file -> its valid detections (`test_one_image_impl`)."""
+        return test_one_image_impl(self, img_path, preprocessing_type, image_format)
+
+    def _debug_inputs(self, image, image_hw, gt_boxes, gt_mask, gt_labels=None):
+        """One image's debug-API inputs as the batch of one `_train_inputs` gives."""
+        labels = gt_labels if gt_labels is not None else np.zeros(np.shape(gt_mask), np.int64)
+        return self._train_inputs(torch.as_tensor(image)[None], torch.as_tensor(image_hw)[None],
+                                  torch.as_tensor(gt_boxes)[None],
+                                  torch.as_tensor(gt_mask)[None], torch.as_tensor(labels)[None])
+
+    def _draws_for_one(self, draws, num_anchors: int, num_rois: int) -> TrainDraws:
+        """`draws` as `loss_fn` takes it, for one image, on the device."""
+        if isinstance(draws, TrainDraws):
+            return draws.to(self.device)
+        return TrainDraws.sample(self.generator if draws is None else draws, 1, num_anchors,
+                                 num_rois, self.cfg["roi_total_sample_number"])
+
+    def _anchor_targets_one(self, anchors, image_hw, gt_boxes, gt_mask, draws):
+        """(anchors [A, 4], positive mask [A]) of one image's RPN targets
+        (JAX `predict_rpn(s)`: `anchor_target`'s labels == 1)."""
+        cfg = self.cfg
+        draws = self._draws_for_one(draws, anchors.shape[0],
+                                    cfg["rpn_proposal_train_after_nms_sample_number"])
+        at = anchor_target(
+            anchors, gt_boxes, gt_mask, image_hw[:, 0], image_hw[:, 1],
+            draws.anchor_fg, draws.anchor_bg,
+            pos_iou_threshold=cfg["rpn_pos_iou_threshold"],
+            neg_iou_threshold=cfg["rpn_neg_iou_threshold"],
+            total_num_samples=cfg["rpn_total_sample_number"],
+            max_pos_samples=cfg["rpn_pos_sample_max_number"],
+        )
+        return anchors, at.labels[0] == 1
+
+    def _proposal_targets_one(self, rois, roi_valid, gt_boxes, gt_mask, gt_labels, draws):
+        """One image's RoI training batch (`ProposalTargets` without the batch
+        axis) from its proposals rois [1, R, 4] / roi_valid [1, R]."""
+        cfg = self.cfg
+        draws = self._draws_for_one(draws, 1, rois.shape[1])
+        pt = proposal_target(
+            rois, roi_valid, gt_boxes, gt_mask, gt_labels,
+            draws.roi_fg, draws.roi_bg, draws.roi_bg_gumbel,
+            num_classes=self.num_classes,
+            pos_iou_threshold=cfg["roi_pos_iou_threshold"],
+            neg_iou_threshold=cfg["roi_neg_iou_threshold"],
+            total_num_samples=cfg["roi_total_sample_number"],
+            max_pos_samples=cfg["roi_pos_sample_max_number"],
+            target_means=tuple(cfg["roi_proposal_means"]),
+            target_stds=tuple(cfg["roi_proposal_stds"]),
+            strict_class_column=bool(cfg.get("strict_reference_parity", False)),
+        )
+        return type(pt)(*(t[0] for t in pt))
 
     def _detection_loss(self, image_hw, gt_boxes, gt_mask, gt_labels, draws, anchors,
                         rpn_logits, rpn_deltas, propose, roi_outputs):

@@ -19,6 +19,11 @@ NMS per batch), the RPN and RoI targets and the four losses of
 through it into the backbone. VGG16's RoI head drops out only there, with
 the keep masks of the step's `TrainDraws`, as JAX passes `train=True` in
 `loss_fn` alone.
+
+The debug entry points `predict_rpn` (positive anchors of one image) and
+`predict_roi` (its RoI training batch from the training-size proposals)
+take injectable draws like `loss_fn`; `test_one_image` is
+`models/detector.py`'s.
 """
 
 from __future__ import annotations
@@ -164,6 +169,34 @@ class FasterRCNNDetector(ServingDetector):
 
     def _detect(self, images, image_hw):
         return self._roi_forward(*self._backbone_rpn(images), image_hw)
+
+    # ------------------------------------------------------------ debug APIs
+    @torch.inference_mode()
+    def predict_rpn(self, image, image_hw, gt_boxes, gt_mask, draws=None):
+        """Positive RPN anchors for one image (JAX `predict_rpn`, reference
+        base_faster_rcnn_model.py:226-241) -> (anchors [A, 4], positive
+        mask [A]). image [Hp, Wp, 3]; image_hw [2]; gt_boxes [G, 4] xyxy
+        pixels with gt_mask [G]. `draws`: a `TrainDraws` of one image (its
+        anchor_fg / anchor_bg [1, A] are read), a `torch.Generator` on the
+        device to draw them from, or None for the detector's own."""
+        images, hw, boxes, mask, _ = self._debug_inputs(image, image_hw, gt_boxes, gt_mask)
+        feats, _, _ = self._backbone_rpn(images)
+        anchors = self.anchors_for_grid(feats.shape[1], feats.shape[2])
+        return self._anchor_targets_one(anchors, hw, boxes, mask, draws)
+
+    @torch.inference_mode()
+    def predict_roi(self, image, image_hw, gt_boxes, gt_mask, gt_labels, draws=None):
+        """The proposal-target training batch of one image (JAX
+        `predict_roi`, reference base_faster_rcnn_model.py:243-265): the
+        proposals at the training sizes, then `proposal_target` ->
+        `ProposalTargets` without the batch axis. `draws` as in
+        `predict_rpn`, of which roi_fg / roi_bg [1, R] and roi_bg_gumbel
+        [1, S, R] are read."""
+        images, hw, boxes, mask, labels = self._debug_inputs(image, image_hw, gt_boxes, gt_mask,
+                                                             gt_labels)
+        _, score_map, bbox_map = self._backbone_rpn(images)
+        rois, roi_valid = self._proposals(score_map, bbox_map, hw, training=True)
+        return self._proposal_targets_one(rois, roi_valid, boxes, mask, labels, draws)
 
     # ------------------------------------------------------------------ loss
     def loss_fn(self, images, image_hw, gt_boxes, gt_mask, gt_labels, draws=None):

@@ -33,7 +33,10 @@ Invalid proposal slots (`roi_valid` False) get zero RoI features, so their
 rows of `im_detect_batch` differ from the JAX detector's, which crops them
 at the origin; post-processing masks them out either way. The serving
 entry points are those of `models/detector.py`; `predict` keeps boxes with
-sides of at least 16 px, as the reference hardcodes.
+sides of at least 16 px, as the reference hardcodes. The debug entry points
+`predict_rpns` (positive anchors over all levels) and `predict_rois` (the
+RoI training batch of the test-size proposals, as JAX takes them) take
+injectable draws like `loss_fn`.
 """
 
 from __future__ import annotations
@@ -295,6 +298,31 @@ class FPNDetector(ServingDetector):
         rois, roi_valid = self._proposals(*self._flatten_levels(score_list, bbox_list), image_hw)
         roi_feats = self._roi_features(p_list, rois, roi_valid, image_hw)
         return (rois, roi_valid, *self._roi_head(roi_feats))
+
+    # ------------------------------------------------------------ debug APIs
+    @torch.inference_mode()
+    def predict_rpns(self, image, image_hw, gt_boxes, gt_mask, draws=None):
+        """Positive RPN anchors for one image over the concatenation of all
+        pyramid levels (JAX `predict_rpns`, reference base_fpn_model.py:
+        326-339) -> (anchors [A, 4], positive mask [A]). Arguments as
+        `FasterRCNNDetector.predict_rpn`'s."""
+        images, hw, boxes, mask, _ = self._debug_inputs(image, image_hw, gt_boxes, gt_mask)
+        _, score_list, _ = self._backbone_neck_rpn(images)
+        grids = tuple((s.shape[1], s.shape[2]) for s in score_list)
+        return self._anchor_targets_one(self.anchors_for_grids(grids), hw, boxes, mask, draws)
+
+    @torch.inference_mode()
+    def predict_rois(self, image, image_hw, gt_boxes, gt_mask, gt_labels, draws=None):
+        """The proposal-target training batch of one image (JAX
+        `predict_rois`, reference base_fpn_model.py:341-362): the proposals
+        at the test sizes, as JAX takes them, then `proposal_target` ->
+        `ProposalTargets` without the batch axis. Arguments as
+        `FasterRCNNDetector.predict_roi`'s."""
+        images, hw, boxes, mask, labels = self._debug_inputs(image, image_hw, gt_boxes, gt_mask,
+                                                             gt_labels)
+        _, score_list, bbox_list = self._backbone_neck_rpn(images)
+        rois, roi_valid = self._proposals(*self._flatten_levels(score_list, bbox_list), hw)
+        return self._proposal_targets_one(rois, roi_valid, boxes, mask, labels, draws)
 
     # ------------------------------------------------------------------ loss
     def loss_fn(self, images, image_hw, gt_boxes, gt_mask, gt_labels, draws=None):

@@ -1,11 +1,17 @@
-"""Single-image inference command line (port of `scripts/infer.py`):
-load -> preprocess -> predict -> print, and draw the boxes.
+"""Single-image inference command line (port of `scripts/infer.py`, the
+reference's `test_one_image` flow): load -> preprocess -> predict -> print,
+and draw the boxes.
 
     python -m tf_eager_object_detection_tpu_torch.scripts.infer CKPT image.jpg --out dets.png
 
-CKPT is a checkpoint directory of the port's trainer or a params `.npz` in
-the JAX package's format. Runs on the card unless `--device cpu` is given.
-Not ported yet: `--spatial_partition` (ROADMAP item 8).
+CKPT is a checkpoint directory of the port's trainer, a params `.npz` in
+the JAX package's format, or with `--use_tf_faster_rcnn_model`,
+`--use_fpn_tensorflow_model` or `--keras_h5` a third-party checkpoint
+(`ref_import/cli.py`). The image is read as JAX reads it: cv2, else PIL
+(`models/detector.py::read_image_file`), so formats cv2 cannot decode
+(TGA, PCX, ICO, ...) are read too; the overlay reads it with PIL. Runs on
+the card unless `--device cpu` is given. Not ported yet:
+`--spatial_partition` (ROADMAP item 8).
 """
 
 import argparse
@@ -13,20 +19,6 @@ import argparse
 import numpy as np
 
 from tf_eager_object_detection_tpu_torch.ref_import.cli import add_import_flags
-
-
-def detect_image_file(detector, path, preprocessing_type="caffe", image_format=None):
-    """One image file -> (boxes [N, 4] on the raw image, labels [N], scores
-    [N]) of the valid detections."""
-    from tf_eager_object_detection_tpu_torch.data.pascal import _read_image
-    from tf_eager_object_detection_tpu_torch.data.preprocessing import preprocess_eval_image
-
-    padded, hw, scale, _, _ = preprocess_eval_image(_read_image(path), detector.cfg,
-                                                    preprocessing_type, image_format=image_format)
-    det = detector.predict(padded, hw)
-    v = det.valid.cpu().numpy()
-    return (det.boxes.cpu().numpy()[v] / scale, det.labels.cpu().numpy()[v],
-            det.scores.cpu().numpy()[v])
 
 
 def main(argv=None):
@@ -58,7 +50,7 @@ def main(argv=None):
                                  args.config_override)
     det = model_factory(args.model_type, args.backbone, cfg, device=args.device)
     image_format = load_checkpoint_params(det, args.ckpt, args)
-    boxes, labels, scores = detect_image_file(det, args.image, image_format=image_format)
+    boxes, labels, scores = det.test_one_image(args.image, image_format=image_format)
     keep = scores >= args.score_threshold
     boxes, labels, scores = boxes[keep], labels[keep], scores[keep]
     names = ({i + 1: n for i, n in enumerate(PASCAL_CLASSES)} if args.data_type == "pascal"
@@ -69,10 +61,9 @@ def main(argv=None):
     if args.out:
         from PIL import Image
 
-        from tf_eager_object_detection_tpu_torch.data.pascal import _read_image
         from tf_eager_object_detection_tpu_torch.utils.visual import draw_bboxes_with_labels
 
-        img = np.ascontiguousarray(_read_image(args.image))
+        img = np.asarray(Image.open(args.image).convert("RGB"))
         tags = [f"{names.get(int(lab), int(lab))}:{s:.2f}" for lab, s in zip(labels, scores)]
         Image.fromarray(draw_bboxes_with_labels(img, boxes, tags)).save(args.out)
         print("wrote", args.out)

@@ -7,9 +7,14 @@
         --coco_annotation_file instances_train.json --coco_image_dir train_images
 
 Runs on the card unless `--device cpu` is given. `--compute_dtype bfloat16`
-trains with bfloat16 compute (parameters, momentum and checkpoints stay
-float32). Not ported yet: `--data_parallel`, `--multihost` and
-`--spatial_partition` (ROADMAP item 8), `--backbone_weights` (item 9).
+trains with bfloat16 compute (parameters, optimizer state and checkpoints
+stay float32). `--backbone_weights` starts a fresh run from a pretrained
+backbone: a keras-applications `.h5` path, an `https://` URL (optionally
+`#md5=<hex>`), `keras` (the reference's release file for the backbone,
+downloaded once into `~/.cache/tpu_od`) or a slim `vgg_16` TF checkpoint
+prefix (VGG16); a restored checkpoint takes precedence over it. Not ported
+yet: `--data_parallel`, `--multihost` and `--spatial_partition` (ROADMAP
+item 8).
 """
 
 import argparse
@@ -45,6 +50,10 @@ def parse_args(argv=None):
     p.add_argument("--learning_rate", type=float, default=None,
                    help="override the initial learning rate (later ones scale with it)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--backbone_weights", default=None,
+                   help="pretrained backbone for a fresh run: a keras .h5 path, an https URL "
+                        "(optionally #md5=<hex>), 'keras', or a slim vgg_16 TF checkpoint "
+                        "prefix; a restored checkpoint takes precedence")
     p.add_argument("--config_override", action="append", default=[], metavar="KEY=JSON",
                    help="override one config key (value parsed as JSON; repeatable)")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
@@ -98,6 +107,7 @@ def main(argv=None):
         saving_every_n_steps=args.saving_every_n_steps,
         restore_ckpt_path=args.restore_ckpt_path,
         seed=args.seed,
+        backbone_weights=args.backbone_weights,
     )
     trainer.train(batches, args.epochs or cfg["epochs"], args.steps_per_epoch)
 

@@ -1,9 +1,12 @@
 """Checkpoints (port of `tf_eager_object_detection_tpu/training/checkpoints.py`).
 
 A `CheckpointManager` keeps the training state of a detector and its
-`MomentumOptimizer` in a directory, one `torch.save` file a step:
+optimizer (`training/optimizer.py`: momentum or Adam) in a directory, one
+`torch.save` file a step:
 
-    {"params": detector.state_dict(), "opt_state": optimizer.trace, "step": optimizer.count}
+    {"params": detector.state_dict(),
+     "opt_state": {"<slot>/<parameter name>": tensor, ...},  # trace/..., or mu/... and nu/...
+     "step": optimizer.count}
 
 every tensor on the CPU, so a checkpoint written on the card restores on
 the CPU and back. It keeps the `max_to_keep` newest steps; a save at a step
@@ -60,7 +63,9 @@ class CheckpointManager:
             return
         state = {
             "params": {k: v.detach().cpu() for k, v in detector.state_dict().items()},
-            "opt_state": {k: v.detach().cpu() for k, v in optimizer.trace.items()},
+            "opt_state": {f"{slot}/{name}": t.detach().cpu()
+                          for slot, tensors in optimizer.state_dict().items() if slot != "count"
+                          for name, t in tensors.items()},
             "step": step,
         }
         tmp = self._path(step) + ".tmp"
@@ -79,7 +84,11 @@ class CheckpointManager:
         state = torch.load(self._path(step), map_location="cpu", weights_only=True)
         detector.load_state_dict(state["params"], strict=True)
         if optimizer is not None:
-            optimizer.load_state_dict({"trace": state["opt_state"], "count": state["step"]})
+            slots = {slot: {} for slot in optimizer.state_dict() if slot != "count"}
+            for key, t in state["opt_state"].items():
+                slot, name = key.split("/", 1)
+                slots.setdefault(slot, {})[name] = t
+            optimizer.load_state_dict({**slots, "count": state["step"]})
         return int(state["step"])
 
     def close(self) -> None:

@@ -6,7 +6,8 @@ Per step: a padded batch -> `make_train_step`; every
 and the ground-truth and predicted-box overlays to the metric writer; every
 `saving_every_n_steps`, and at the end of each epoch, save a checkpoint.
 Restore precedence: an explicit checkpoint directory, else the latest step
-in the training directory.
+in the training directory, else the seeded init with the pretrained
+backbone of `backbone_weights` where given.
 
 One device; data parallelism, multiple hosts and spatial partitioning are
 not ported yet (ROADMAP item 8). The step count lives on the host, and a
@@ -100,13 +101,20 @@ class Trainer:
         restore_ckpt_path: Optional[str] = None,
         seed: int = 0,
         draws: Optional[Callable[[int], object]] = None,
+        backbone_weights: Optional[str] = None,
     ):
-        """`detector` is re-initialized from `seed` (`init_params`), then
-        restored from `restore_ckpt_path` or the latest checkpoint in
-        `train_dir`. `draws(step)` -> the `TrainDraws` of the 1-based step,
-        for a caller that must fix them (a parity test)."""
+        """`detector` is re-initialized from `seed` (`init_params`), its
+        backbone loaded from `backbone_weights` where given
+        (`ref_import/cli.py::load_backbone_weights`), then restored from
+        `restore_ckpt_path` or the latest checkpoint in `train_dir`, which
+        takes precedence over both. `draws(step)` -> the `TrainDraws` of the
+        1-based step, for a caller that must fix them (a parity test)."""
         self.det = detector
         detector.init_params(seed)
+        if backbone_weights:
+            from tf_eager_object_detection_tpu_torch.ref_import.cli import load_backbone_weights
+
+            load_backbone_weights(detector, backbone_weights)
         self.optimizer = make_optimizer(detector.cfg, detector)
         self.step_fn = make_train_step(detector, self.optimizer)
         self.lr_schedule = self.optimizer.schedule
