@@ -174,10 +174,29 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    the Adam one) first measures its own conditioning: the CPU step at the
    input times 1 + 1e-6 must move no gradient by more than the tolerance,
    and the move prints beside the card-vs-CPU gap.
-11. Prints a JSON line with the records of the five kernels and of the four
+11. `export_frcnn_baked`, `export_fpn_program_only`: the serving export
+   (`serving/export.py`). C4 ResNet-50 float32 (TF32 off) is exported with
+   its weights baked for both buckets (608x1008, 1008x608), FPN ResNet-50
+   float32 program only (`bake_params=False`: 640x1024 and 1024x640, and
+   one `params.npz`); each artifact is reloaded with `load_predict` and
+   serves the 8 requests, held against the detector's direct `predict`
+   (labels and validity equal, boxes within 1e-4 px, scores within 1e-5;
+   the largest differences print). K1 launches twice a request through
+   both programs, K4 once a request through FPN's. Prints the export
+   seconds of each artifact, the files' sizes, the load seconds, one
+   request through the artifact against the direct call, and the host
+   microseconds of one call through the K1 and K4 operators against a
+   direct call of their ctypes wrappers at the served shapes.
+12. Prints a JSON line with the records of the five kernels and of the four
    RoIAlign kernels' bf16-plane variants (K1's with every shape of phase
    3 under `per_shape`), then as its last line
    `{"ok": true, "device": {...}}`. Any failure raises: exit code != 0.
+
+Every kernel check of phases 3-5 also calls the kernel through its
+`tf_eager_od` operator (`ops/kernels/library.py`): K1, K4 and K2 bit-equal
+to their wrappers, K5 and K3 as the operators' `register_autograd` backward
+within the wrappers' tolerance of the plain backward. The paths of phases
+6-11 reach every kernel through the operators.
 """
 
 from __future__ import annotations
@@ -219,6 +238,7 @@ from tf_eager_object_detection_tpu_torch.models.model_factory import model_facto
 from tf_eager_object_detection_tpu_torch.ops import nms as nms_mod
 from tf_eager_object_detection_tpu_torch.ops import roi_align as roi_mod
 from tf_eager_object_detection_tpu_torch.ops.kernels import build as kb
+from tf_eager_object_detection_tpu_torch.ops.kernels import library as op_lib
 from tf_eager_object_detection_tpu_torch.ops.kernels.nms_cuda import NMS_KERNEL
 from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_backward_cuda import (
     ROI_ALIGN_BACKWARD_KERNEL,
@@ -242,6 +262,7 @@ from tf_eager_object_detection_tpu_torch.scripts import eval_coco, eval_pascal
 from tf_eager_object_detection_tpu_torch.scripts.coco_rehearsal import COCO_CAT_IDS
 from tf_eager_object_detection_tpu_torch.scripts.coco_rehearsal import generate as generate_coco
 from tf_eager_object_detection_tpu_torch.scripts.voc_rehearsal import generate
+from tf_eager_object_detection_tpu_torch.serving.export import export_predict, load_predict
 from tf_eager_object_detection_tpu_torch.training.checkpoints import save_params
 from tf_eager_object_detection_tpu_torch.training.optimizer import AdamOptimizer, make_optimizer
 from tf_eager_object_detection_tpu_torch.training.train_step import make_train_step
@@ -323,6 +344,17 @@ KERNELS = {
                                   _PALLAS + "roi_align_pallas.py:664"),
     "roi_align_multilevel_backward_bf16": (ROI_ALIGN_BACKWARD_KERNEL, "bfloat16",
                                            _PALLAS + "roi_align_pallas.py:759"),
+}
+
+
+# the `tf_eager_od` operator (ops/kernels/library.py) through which the
+# port calls each kernel
+OPERATORS = {
+    "nms_alive_sorted": "tf_eager_od::nms_alive_sorted",
+    "roi_align_multilevel": "tf_eager_od::roi_align",
+    "roi_align_single_level": "tf_eager_od::roi_align (one plane)",
+    "roi_align_multilevel_backward": "tf_eager_od::roi_align_backward",
+    "roi_align_single_level_backward": "tf_eager_od::roi_align_backward (one plane)",
 }
 
 
@@ -565,6 +597,8 @@ def check_nms_kernel(card):
         tv = torch.from_numpy(valid).cuda()
         got = NMS_KERNEL(tb, tv, thr, max_out)
         ref = nms_mod.nms_alive_sorted_reference(tb, tv, thr, max_out)
+        require(torch.equal(torch.ops.tf_eager_od.nms_alive_sorted(tb, tv, thr, max_out), got),
+                f"the NMS operator differs from its kernel's wrapper at {name}")
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
         kept = got.sum(-1)
@@ -591,7 +625,7 @@ def check_nms_kernel(card):
         boxes, valid = nms_edge_fixture(rng, b, k, kind)
         tb = torch.from_numpy(boxes).cuda()
         tv = torch.from_numpy(valid).cuda()
-        got = NMS_KERNEL(tb, tv, thr, max_out)
+        got = torch.ops.tf_eager_od.nms_alive_sorted(tb, tv, thr, max_out)
         ref = nms_mod.nms_alive_sorted_reference(tb, tv, thr, max_out)
         require(torch.equal(got, ref), f"NMS kernel differs from the plain version at {name}: "
                 f"{int((got != ref).sum())} slots")
@@ -728,6 +762,8 @@ def check_roi_kernel(card):
     for name, args in cases:
         got = ROI_ALIGN_KERNEL(*args)
         path = "float4" if vectorizable(args[0], got) else "scalar"
+        require(torch.equal(roi_op(args), got),
+                f"the RoIAlign operator differs from its kernel's wrapper at {name}")
         torch.cuda.synchronize()
         ref = plain_per_image(args)
         err = float((got - ref).abs().max())
@@ -766,9 +802,23 @@ def per_level(args):
     return [single_level_args(args, k) for k in range(len(args[0]))]
 
 
+def roi_op(args):
+    """K4 through the `tf_eager_od::roi_align` operator (K2 with one plane)."""
+    planes, rois, levels, valid, ih, iw, crop, strides = args
+    return torch.ops.tf_eager_od.roi_align(list(planes), rois, levels, valid, ih, iw, crop,
+                                           list(strides))
+
+
+def roi_op_grads(g, args):
+    """The planes' gradients of `roi_op` for g: K5 (K3 with one plane)
+    through the operator's `register_autograd`."""
+    leaves = [p.detach().requires_grad_() for p in args[0]]
+    return torch.autograd.grad(roi_op((leaves, *args[1:])), leaves, g)
+
+
 def plain_backward(g, args):
-    """The plain backward one image at a time (autograd through the plain
-    forward; its P2 matmul intermediates are ~1 GB per image at N=256)."""
+    """The plain backward one image at a time (the plain forward's matmuls
+    transposed; its P2 intermediates are ~1 GB per image at N=256)."""
     planes, rois, levels, valid, ih, iw, crop, strides = args
     per_image = [roi_mod.roi_align_multilevel_reference_backward(
         g[i:i + 1], [p[i:i + 1] for p in planes], rois[i:i + 1], levels[i:i + 1],
@@ -900,6 +950,9 @@ def check_backward(name, kernel, counting, g, args_list):
                     f"{name} differs from the plain backward: max abs err {float(diff.max())}")
             err = max(err, float(diff.max()))
             rel = max(rel, float((diff / m.clamp_min(1e-30)).max()))
+        for d, r, m in zip(roi_op_grads(g, args), ref, scale):
+            require(bool(((d - r).abs() <= 1e-5 * m).all()),
+                    f"{name} through the operator's autograd differs from the plain backward")
         del got, ref, scale
     ms = graph_ms(lambda: [kernel(g, [tuple(p.shape) for p in a[0]], *a[1:]) for a in args_list])
     plain_ms = cuda_ms(lambda: [plain_backward(g, a) for a in args_list], iters=2, warmup=1)
@@ -1025,6 +1078,8 @@ def check_bf16_forward(card):
             for x16, x32 in zip(l16, l32):
                 got, want = kernel(*x16), kernel(*x32)
                 path = "16-byte" if vectorizable(x16[0], got) else "scalar"
+                require(torch.equal(roi_op(x16), got),
+                        f"{kname} {name}: the operator differs from its kernel's wrapper")
                 torch.cuda.synchronize()
                 require(torch.equal(got, want), f"{kname} {name}: bf16 planes differ from the "
                         f"float32 kernel on the widened planes")
@@ -1368,20 +1423,20 @@ def device_profile(fn, card, top: int = 8):
 
 class NmsShapes:
     """While active, records ([B, K] -> max_output) of every K1 launch that
-    goes through `ops/nms.py` (the launch counts stay the kernel's own)."""
+    goes through the NMS operator (the launch counts stay the kernel's own)."""
 
     def __enter__(self):
-        self.shapes, self._kernel = [], nms_mod.NMS_KERNEL
+        self.shapes, self._kernel = [], op_lib.NMS_KERNEL
 
         def record(boxes, valid, iou_threshold, max_output):
             self.shapes.append((*boxes.shape[:2], max_output))
             return self._kernel(boxes, valid, iou_threshold, max_output)
 
-        nms_mod.NMS_KERNEL = record
+        op_lib.NMS_KERNEL = record
         return self
 
     def __exit__(self, *exc):
-        nms_mod.NMS_KERNEL = self._kernel
+        op_lib.NMS_KERNEL = self._kernel
 
     def check(self, path, expected: dict):
         """The launches by shape (B, K, max_output) must be `expected`."""
@@ -2842,6 +2897,136 @@ def drive_debug(card):
     return {"debug": card_launches}
 
 
+# ------------------------------------------------------------------- export
+EXPORT_BOX_TOL = 1e-4  # px, artifact against the detector's direct predict
+EXPORT_SCORE_TOL = 1e-5
+HOST_CALLS = 200  # calls per host-time measurement of an operator or its wrapper
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host microseconds of one `fn()`: `calls` calls issued back to back
+    with no synchronization inside the timed loop (the card runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def op_host_times(card) -> dict:
+    """Host us of one call through each serving operator against a direct
+    call of its ctypes wrapper, at the served shapes (K1 [4, 6000] -> 1000,
+    the FPN RPN NMS of a batch; K4 at B=4, N=1000 on the planes of a
+    640x1024 bucket), in the order op, wrapper, wrapper, op."""
+    rng = np.random.RandomState(21)
+    boxes, valid = nms_fixture(rng, BATCH, 6000)
+    tb, tv = torch.from_numpy(boxes).cuda(), torch.from_numpy(valid).cuda()
+    args = roi_fixture(rng, BATCH, 1000, SERVED_HWS)
+    pairs = {
+        "nms_alive_sorted [4,6000]->1000": (
+            lambda: torch.ops.tf_eager_od.nms_alive_sorted(tb, tv, 0.7, 1000),
+            lambda: NMS_KERNEL(tb, tv, 0.7, 1000)),
+        "roi_align B=4 N=1000 S=14 C=256, P2..P5 of 640x1024": (
+            lambda: roi_op(args), lambda: ROI_ALIGN_KERNEL(*args)),
+    }
+    out = {}
+    for name, (op, wrapper) in pairs.items():
+        a, b, c, d = host_us(op), host_us(wrapper), host_us(wrapper), host_us(op)
+        out[name] = dict(op_us=(a + d) / 2, wrapper_us=(b + c) / 2, op_runs=[a, d],
+                         wrapper_runs=[b, c])
+        print(f"host time of one call, {name}: operator {a:.1f} / {d:.1f} us, ctypes wrapper "
+              f"{b:.1f} / {c:.1f} us (op, wrapper, wrapper, op; {HOST_CALLS} calls each)  "
+              f"({card})")
+    return out
+
+
+def serve_artifact(name, export_dir, det, cfg, requests, card, expected):
+    """The requests through `load_predict(export_dir)` against the
+    detector's direct `predict`: labels and validity equal, boxes within
+    EXPORT_BOX_TOL px, scores within EXPORT_SCORE_TOL. Checks the kernel
+    launches of the artifact's run alone (`expected`) and returns them."""
+    t0 = time.perf_counter()
+    predict, meta = load_predict(export_dir)
+    load_s = time.perf_counter() - t0
+    require(meta["platforms"] == ["cuda"], f"{name}: exported for {meta['platforms']}")
+    items = [preprocess_eval_image(img, cfg)[:2] for img in requests]
+    want = [[t.cpu() for t in det.predict(p, hw)] for p, hw in items]
+    predict(*items[0])  # warm-up: cuDNN algorithm choice, allocator
+    torch.cuda.synchronize()
+    reset_launches()
+    got = [predict(p, hw) for p, hw in items]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    box_err = score_err = 0.0
+    for (gb, gl, gs, gv), (wb, wl, ws, wv) in zip(([t.cpu() for t in g] for g in got), want):
+        require(torch.equal(gv, wv) and torch.equal(gl, wl),
+                f"{name}: labels or validity differ from the direct predict")
+        box_err = max(box_err, float((gb - wb).abs().max()))
+        score_err = max(score_err, float((gs - ws).abs().max()))
+    require(box_err <= EXPORT_BOX_TOL and score_err <= EXPORT_SCORE_TOL,
+            f"{name}: box err {box_err} px, score err {score_err} against the direct predict")
+    n = sum(int(w[3].sum()) for w in want)
+    print(f"{name}: {len(items)} requests through the reloaded artifact ({load_s:.2f} s to "
+          f"load), {n} detections, labels and validity equal to the direct predict, max box "
+          f"diff {box_err:.3g} px, max score diff {score_err:.3g}; launches {launches}  "
+          f"({card})")
+    want_launches = dict.fromkeys(KERNELS, 0)
+    want_launches.update(expected)
+    require(launches == want_launches, f"{name} launches {launches} != {want_launches}")
+    p, hw = items[0]
+    art_ms = cuda_ms(lambda: predict(p, hw), iters=5)
+    direct_ms = cuda_ms(lambda: det.predict(p, hw), iters=5)
+    print(f"{name} one request {p.shape[0]}x{p.shape[1]}: artifact {art_ms:.2f} ms, direct "
+          f"predict {direct_ms:.2f} ms  ({card})")
+    return launches
+
+
+def export_with_times(det, out_dir, bake_params):
+    """`export_predict` -> (seconds of each artifact, by file name, from the
+    files' modification times, and their sizes in bytes)."""
+    t0 = time.time()
+    export_predict(det, str(out_dir), bake_params=bake_params)
+    stamps = sorted((os.path.getmtime(f), f.name) for f in out_dir.glob("predict_*.pt2"))
+    seconds, last = {}, t0
+    for stamp, name in stamps:
+        seconds[name], last = stamp - last, stamp
+    sizes = {f.name: f.stat().st_size for f in out_dir.iterdir()}
+    return seconds, sizes
+
+
+def drive_export(requests, card):
+    """The serving export: C4 ResNet-50 float32 (TF32 off) exported with its
+    weights baked for both buckets, FPN ResNet-50 float32 exported program
+    only (`bake_params=False`, the 640x1024 bucket and its portrait twin,
+    so that the 8 requests are served), both reloaded with `load_predict`
+    and held against the detector's direct `predict`; K1 launches through
+    both programs and K4 through FPN's. Then the host time of one operator
+    call against its ctypes wrapper."""
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, model_type, baked, expected in (
+                ("export_frcnn_baked", "faster_rcnn", True,
+                 {"nms_alive_sorted": 2 * len(requests)}),
+                ("export_fpn_program_only", "fpn", False,
+                 {"nms_alive_sorted": 2 * len(requests), "roi_align_multilevel": len(requests)})):
+            cfg = dict(config_factory("pascal", model_type))
+            det = model_factory(model_type, "resnet50", cfg, device="cuda", seed=0)
+            out = Path(tmp) / name
+            seconds, sizes = export_with_times(det, out, baked)
+            state_mb = sum(t.numel() * t.element_size() for t in det.state_dict().values()) / 2**20
+            print(f"{name}: exported {', '.join(f'{k} in {v:.2f} s' for k, v in seconds.items())}"
+                  f"; files {', '.join(f'{k} {v / 2**20:.3f} MiB' for k, v in sizes.items())} "
+                  f"(weights {state_mb:.3f} MiB)  ({card})")
+            paths[name] = serve_artifact(name, out, det, cfg, requests, card, expected)
+            del det
+            torch.cuda.empty_cache()
+    op_host_times(card)
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU",
@@ -2909,6 +3094,8 @@ def main() -> int:
     paths.update(drive_adam(card))
     paths.update(drive_debug(card))
     print(f"import, adam and debug phases done at {time.perf_counter() - t_start:.1f} s")
+    paths.update(drive_export(requests, card))
+    print(f"export phase done at {time.perf_counter() - t_start:.1f} s")
 
     per_level_shape = "B=1 N=256 S=14 C=256, one launch per level P2..P5"
     fused_shape = "B=1 N=256 S=14 C=256, P2..P5 of 640x1024"
@@ -2933,6 +3120,7 @@ def main() -> int:
         row = {
             "name": name,
             "route": "cuda",
+            "operator": OPERATORS[name.removesuffix("_bf16")],
             "source": kernel.source,
             "replaces": replaces,
             "plane_dtype": dtype,

@@ -308,6 +308,30 @@ def test_importers_run_without_h5py_tensorflow_or_jax():
     assert proc.stdout.strip().endswith("OK")
 
 
+def test_operator_library_and_export_import_without_jax():
+    """The `tf_eager_od` operators, `serving/export.py` and
+    `scripts/export.py` load no JAX; the operators are registered."""
+    proc = _run(
+        """
+        import sys
+        import torch
+        from tf_eager_object_detection_tpu_torch.ops.kernels import library
+        from tf_eager_object_detection_tpu_torch.serving import export
+        from tf_eager_object_detection_tpu_torch.scripts import export as export_cli
+        for name in ("nms_alive_sorted", "roi_align", "roi_align_backward"):
+            assert hasattr(torch.ops.tf_eager_od, name), name
+        try:
+            export_cli.main(["--help"])
+        except SystemExit as e:
+            assert e.code == 0
+""" + _NO_JAX + """
+        print("OK")
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
 def test_chip_smoke_imports_only_the_port():
     proc = _run(
         """

@@ -4,6 +4,8 @@ Under pytest-xdist every worker imports every test module, so a
 module-scoped fixture runs once in each worker that draws one of its
 tests. `shared` keeps the first worker's result in the session's common
 temporary directory, under a file lock, and hands it to the others.
+Importing this module also sizes torch's thread pool to the worker's share
+of the cores (`_share_the_cores`).
 """
 
 import ctypes
@@ -18,6 +20,23 @@ try:
     from filelock import FileLock
 except ImportError:  # pragma: no cover - then each worker computes its own
     FileLock = None
+
+
+def _share_the_cores():
+    """Under pytest-xdist, torch's intra-op threads of each worker get the
+    worker's share of the machine's cores. By default every worker starts
+    one thread per core, and N workers then run N times as many threads as
+    there are cores, which mostly wait on each other. Every worker imports
+    every test module, this one included, so each applies it before its
+    first test."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+    if workers > 1:
+        import torch
+
+        torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // workers))
+
+
+_share_the_cores()
 
 
 def _release_freed_memory():

@@ -2,7 +2,9 @@
 weights, the freeze policy, the serving entry points and the training loss
 around the RPN and RoI heads.
 
-- `predict(image, image_hw)` -> padded `Detections` for one image.
+- `predict(image, image_hw)` -> padded `Detections` for one image;
+  `PredictProgram(detector)` is the same call as a module that
+  `torch.export` traces (`serving/export.py`), after `fill_caches(bucket)`.
 - `im_detect(image, image_hw, scale)` / `im_detect_batch(images, image_hw,
   scales)` -> raw-head outputs with rois rescaled by 1/scale, for the eval
   writers.
@@ -61,8 +63,8 @@ from tf_eager_object_detection_tpu_torch.ops.sampling import (
     proposal_target,
 )
 
-__all__ = ["ServingDetector", "resolve_device", "read_image_file", "test_one_image_impl",
-           "RESNET_DEPTHS", "BACKBONES"]
+__all__ = ["ServingDetector", "PredictProgram", "resolve_device", "read_image_file",
+           "test_one_image_impl", "RESNET_DEPTHS", "BACKBONES"]
 
 RESNET_DEPTHS = {"resnet50": 50, "resnet101": 101, "resnet152": 152}
 # the backbones of each model type, as the JAX `model_factory` builds them
@@ -305,6 +307,19 @@ class ServingDetector(nn.Module):
     @torch.inference_mode()
     def predict(self, image, image_hw) -> Detections:
         """Single padded image [Hp, Wp, 3] -> padded Detections."""
+        return self.predict_impl(image, image_hw)
+
+    def fill_caches(self, bucket) -> None:
+        """Fill the lazy caches that `predict` reads for a padded image of
+        `bucket` ((H, W): the anchors, FPN's resize matrices) with real
+        tensors, by one `predict` of a zero image. A tracer that reached an
+        empty cache first (`torch.export`) would leave its fake tensor there."""
+        h, w = (int(d) for d in bucket)
+        self.predict(torch.zeros((h, w, 3)), [h, w])
+
+    def predict_impl(self, image, image_hw) -> Detections:
+        """`predict` without `torch.inference_mode`: what `PredictProgram`
+        traces."""
         cfg = self.cfg
         images, hw = self._as_inputs(image, image_hw)
         rois, roi_valid, roi_softmax, roi_deltas = self._detect(images[None], hw[None])
@@ -344,3 +359,17 @@ class ServingDetector(nn.Module):
             torch.as_tensor(scale, dtype=torch.float32)[None],
         )
         return tuple(t[0] for t in out)
+
+
+class PredictProgram(nn.Module):
+    """`predict` of one padded bucket as a module for `torch.export`:
+    forward(image [H, W, 3] float32, image_hw [2] int64) -> the `Detections`
+    fields (boxes, labels, scores, valid) as a tuple, on the detector's
+    device. Call `detector.fill_caches((H, W))` before tracing it."""
+
+    def __init__(self, detector: ServingDetector):
+        super().__init__()
+        self.detector = detector
+
+    def forward(self, image: torch.Tensor, image_hw: torch.Tensor):
+        return tuple(self.detector.predict_impl(image, image_hw))

@@ -3,8 +3,8 @@
 - `ROI_ALIGN_BACKWARD_KERNEL(grad, plane_shapes, rois, levels, valid,
   image_height, image_width, crop_size, strides)`: the fused-pyramid
   backward (K5) -> one gradient per plane, fresh zeros plus the scatter.
-- `ROI_ALIGN_SINGLE_BACKWARD_KERNEL`: the same kernel, launched by
-  `ops/roi_align.py::RoIAlignSingleLevel` with one plane (K3).
+- `ROI_ALIGN_SINGLE_BACKWARD_KERNEL`: the same kernel, launched by the
+  `tf_eager_od::roi_align_backward` operator (`library.py`) for one plane (K3).
 
 Arguments are checked and passed as for the forward (`roi_align_cuda.py`),
 with the output gradient in place of the output: the kernel adds 16-byte

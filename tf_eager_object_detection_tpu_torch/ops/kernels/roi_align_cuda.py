@@ -2,8 +2,9 @@
 
 - `ROI_ALIGN_KERNEL(p_list, rois, levels, valid, image_height, image_width,
   crop_size, strides)`: the fused-pyramid forward (K4) -> [B, N, S, S, C].
-- `ROI_ALIGN_SINGLE_KERNEL`: the same kernel, launched by
-  `ops/roi_align.py::roi_align_single_level` with one plane (K2).
+- `ROI_ALIGN_SINGLE_KERNEL`: the same kernel, launched by the
+  `tf_eager_od::roi_align` operator (`library.py`) for one plane (K2), as
+  `ops/roi_align.py::roi_align_single_level` calls it.
 
 The backward wrappers (K5, K3) are in `roi_align_backward_cuda.py`. Each
 launches on PyTorch's current stream, builds its library on first use

@@ -6,16 +6,20 @@ by original index (stable sort), at most `max_output` kept. Every function
 takes a leading batch dimension: one row per image (the RPN) or per class
 (the per-class NMS). Shapes are static; validity is carried in masks.
 
-`nms_alive_sorted` dispatches on where its input lies: a CUDA tensor goes to
-the hand-written kernel (`csrc/nms.cu`), a CPU tensor to
-`nms_alive_sorted_reference`, the plain PyTorch version of the same function.
+`nms_alive_sorted` calls the `tf_eager_od::nms_alive_sorted` operator
+(`ops/kernels/library.py`): on a CUDA tensor the hand-written kernel
+(`csrc/nms.cu`), on a CPU tensor `nms_alive_sorted_reference`, the plain
+PyTorch version of the same function. The plain version reads back to the
+host to end its loop, so to a tracer (`torch.export`) the operator is one
+opaque call on either device.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tf_eager_object_detection_tpu_torch.ops.kernels.nms_cuda import NMS_KERNEL
+# registers the tf_eager_od operators that `nms_alive_sorted` calls
+from tf_eager_object_detection_tpu_torch.ops.kernels import library  # noqa: F401
 
 __all__ = [
     "nms_alive_sorted",
@@ -105,18 +109,10 @@ def nms_alive_sorted(
 
     sorted_boxes [B, K, 4] float32 xyxy; sorted_valid [B, K] bool.
     """
-    if sorted_boxes.device.type == "cuda":
-        return NMS_KERNEL(
-            sorted_boxes.float().contiguous(),
-            sorted_valid.contiguous(),
-            iou_threshold,
-            max_output,
-        )
-    if sorted_boxes.device.type == "cpu":
-        return nms_alive_sorted_reference(
-            sorted_boxes, sorted_valid, iou_threshold, max_output
-        )
-    raise ValueError(f"no NMS for device {sorted_boxes.device}")
+    return torch.ops.tf_eager_od.nms_alive_sorted(
+        sorted_boxes.float().contiguous(), sorted_valid.contiguous(), float(iou_threshold),
+        int(max_output),
+    )
 
 
 def compact_alive(alive: torch.Tensor, size: int) -> tuple[torch.Tensor, torch.Tensor]:

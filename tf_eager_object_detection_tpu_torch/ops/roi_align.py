@@ -13,10 +13,11 @@ TF crop_and_resize sampling rule (crop size S > 1):
 `roi_align_multilevel` is FPN's RoIAlign: every roi sampled from its own
 pyramid level; `roi_align_single_level` samples one level for the rois it
 marks active. Both are differentiable in the planes (not in rois, levels or
-masks, as in JAX). A CUDA tensor goes to the hand-written kernels behind a
-`torch.autograd.Function` (`csrc/roi_align.cu` forward, K4 / K2;
-`csrc/roi_align_backward.cu` backward, K5 / K3), a CPU tensor to the plain
-PyTorch versions (`*_reference`), whose gradients are autograd's.
+masks, as in JAX). Both call the `tf_eager_od::roi_align` operator
+(`ops/kernels/library.py`), whose backward is `tf_eager_od::roi_align_backward`:
+on CUDA tensors the hand-written kernels (`csrc/roi_align.cu` forward, K4 /
+K2; `csrc/roi_align_backward.cu` backward, K5 / K3), on CPU tensors the
+plain PyTorch versions (`*_reference`).
 
 Planes are float32 or bfloat16 (one dtype for all of them), as the Pallas
 kernels take them. The crops are float32 either way: a bfloat16 plane is
@@ -34,14 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_backward_cuda import (
-    ROI_ALIGN_BACKWARD_KERNEL,
-    ROI_ALIGN_SINGLE_BACKWARD_KERNEL,
-)
-from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_cuda import (
-    ROI_ALIGN_KERNEL,
-    ROI_ALIGN_SINGLE_KERNEL,
-)
+# registers the tf_eager_od operators that the entry points call
+from tf_eager_object_detection_tpu_torch.ops.kernels import library  # noqa: F401
 
 __all__ = [
     "crop_and_resize",
@@ -54,8 +49,6 @@ __all__ = [
     "roi_align_multilevel_reference_backward",
     "roi_align_single_level",
     "roi_align_single_level_reference",
-    "RoIAlignMultilevel",
-    "RoIAlignSingleLevel",
 ]
 
 # Samples within this distance outside [0, size-1] still count as inside, as
@@ -99,6 +92,19 @@ def _crop(features: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor) -> torch.T
     rows = rows.permute(0, 2, 1, 3).reshape(b * n, w, s * c)
     out = torch.bmm(wx.reshape(b * n, s, w), rows)  # [B*N, S_t, S_s*C]
     return out.reshape(b, n, s, s, c).transpose(2, 3)
+
+
+def _crop_backward(grad: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor) -> torch.Tensor:
+    """The gradient of `_crop` in its features: grad [B, N, S, S, C] float32,
+    wy [B, N, S, H], wx [B, N, S, W] -> [B, H, W, C] float32."""
+    b, n, s, _, c = grad.shape
+    h, w = wy.shape[-1], wx.shape[-1]
+    # through the W contraction: per roi, [W, S_t] @ [S_t, S_s*C]
+    g = grad.transpose(2, 3).reshape(b * n, s, s * c)
+    rows = torch.bmm(wx.reshape(b * n, s, w).transpose(1, 2), g)  # [B*N, W, S_s*C]
+    rows = rows.reshape(b * n, w, s, c).permute(0, 2, 1, 3).reshape(b, n * s, w * c)
+    # then H: [B, H, N*S] @ [B, N*S, W*C]
+    return torch.bmm(wy.reshape(b, n * s, h).transpose(1, 2), rows).reshape(b, h, w, c)
 
 
 def crop_and_resize(
@@ -256,16 +262,21 @@ def roi_align_multilevel_reference_backward(
 ) -> list[torch.Tensor]:
     """Plain version of the fused-pyramid backward (TPU kernel `_ml_bwd_kernel`):
     the gradient of `roi_align_multilevel_reference` with respect to each
-    plane for the output gradient `grad` [B, N, S, S, C], by autograd, summed
-    in float32 and returned in each plane's dtype. Only the planes' shapes
-    and dtypes matter (the function is linear in them)."""
-    with torch.enable_grad():
-        planes = [p.detach().float().requires_grad_() for p in p_list]
-        out = roi_align_multilevel_reference(
-            planes, rois, levels, valid, image_height, image_width, crop_size, strides
-        )
-        grads = torch.autograd.grad(out, planes, grad)
-        return [d.to(p.dtype) for d, p in zip(grads, p_list)]
+    plane for the output gradient `grad` [B, N, S, S, C], the two matmuls of
+    `_crop` transposed in reverse order (the products autograd would form),
+    summed in float32 and returned in each plane's dtype. Only the planes'
+    shapes and dtypes matter (the function is linear in them)."""
+    grad = grad.float()
+    out = []
+    for k, (feat, stride) in enumerate(zip(p_list, strides)):
+        h, w = feat.shape[1], feat.shape[2]
+        ys, y_ok = level_sample_coords(rois[..., 1], rois[..., 3], image_height, stride, crop_size)
+        xs, x_ok = level_sample_coords(rois[..., 0], rois[..., 2], image_width, stride, crop_size)
+        keep = ((levels == k) & valid)[..., None, None, None]
+        g = torch.where(keep, grad, torch.zeros_like(grad))
+        d = _crop_backward(g, _tent_weights(ys, y_ok, h), _tent_weights(xs, x_ok, w))
+        out.append(d.to(feat.dtype))
+    return out
 
 
 def roi_align_single_level_reference(
@@ -286,56 +297,6 @@ def roi_align_single_level_reference(
     )
 
 
-class RoIAlignMultilevel(torch.autograd.Function):
-    """K4 forward, K5 backward; the gradient goes to the planes only, in
-    their dtype.
-
-    apply(rois, levels, valid, image_height, image_width, crop_size, strides,
-    *p_list) on CUDA tensors in the kernels' dtypes and layout.
-    """
-
-    @staticmethod
-    def forward(ctx, rois, levels, valid, image_height, image_width, crop_size, strides, *p_list):
-        ctx.save_for_backward(rois, levels, valid, image_height, image_width)
-        ctx.crop_size, ctx.strides = crop_size, tuple(strides)
-        ctx.shapes = [tuple(p.shape) for p in p_list]
-        ctx.plane_dtype = p_list[0].dtype
-        return ROI_ALIGN_KERNEL(list(p_list), rois, levels, valid, image_height, image_width,
-                                crop_size, strides)
-
-    @staticmethod
-    def backward(ctx, grad):
-        dfs = ROI_ALIGN_BACKWARD_KERNEL(grad.contiguous(), ctx.shapes, *ctx.saved_tensors,
-                                        ctx.crop_size, ctx.strides, ctx.plane_dtype)
-        return (None,) * 7 + tuple(dfs)
-
-
-class RoIAlignSingleLevel(torch.autograd.Function):
-    """K2 forward, K3 backward; the gradient goes to the features only, in
-    their dtype.
-
-    apply(features, rois, active, image_height, image_width, crop_size,
-    level_stride) on CUDA tensors in the kernels' dtypes and layout.
-    """
-
-    @staticmethod
-    def forward(ctx, features, rois, active, image_height, image_width, crop_size, level_stride):
-        levels = torch.zeros_like(active, dtype=torch.long)
-        ctx.save_for_backward(rois, levels, active, image_height, image_width)
-        ctx.crop_size, ctx.strides = crop_size, (level_stride,)
-        ctx.shape = tuple(features.shape)
-        ctx.plane_dtype = features.dtype
-        return ROI_ALIGN_SINGLE_KERNEL([features], rois, levels, active, image_height,
-                                       image_width, crop_size, ctx.strides)
-
-    @staticmethod
-    def backward(ctx, grad):
-        (df,) = ROI_ALIGN_SINGLE_BACKWARD_KERNEL(grad.contiguous(), [ctx.shape],
-                                                 *ctx.saved_tensors, ctx.crop_size, ctx.strides,
-                                                 ctx.plane_dtype)
-        return (df,) + (None,) * 6
-
-
 def roi_align_multilevel(
     p_list: Sequence[torch.Tensor],
     rois: torch.Tensor,
@@ -346,25 +307,17 @@ def roi_align_multilevel(
     crop_size: int,
     strides: Sequence[int],
 ) -> torch.Tensor:
-    """Fused-pyramid RoIAlign -> [B, N, S, S, C] float32 (see the reference).
-
-    CUDA tensors launch the kernels (and raise if one fails) on the planes
-    as they are, float32 or bfloat16; CPU tensors take
-    `roi_align_multilevel_reference`. Either way no gradient reaches the
-    rois, as in JAX (`stop_gradient`).
+    """Fused-pyramid RoIAlign -> [B, N, S, S, C] float32 (see the reference):
+    the `tf_eager_od::roi_align` operator (K4 on CUDA tensors, the plain
+    version on CPU ones) on the planes as they are, float32 or bfloat16. No
+    gradient reaches the rois, as in JAX (`stop_gradient`).
     """
-    if rois.device.type == "cuda":
-        return RoIAlignMultilevel.apply(
-            rois.detach().float().contiguous(), levels.long().contiguous(),
-            valid.bool().contiguous(), image_height.float().contiguous(),
-            image_width.float().contiguous(), crop_size, tuple(strides),
-            *[p.contiguous() for p in p_list],
-        )
-    if rois.device.type == "cpu":
-        return roi_align_multilevel_reference(
-            p_list, rois.detach(), levels, valid, image_height, image_width, crop_size, strides
-        )
-    raise ValueError(f"no RoIAlign for device {rois.device}")
+    return torch.ops.tf_eager_od.roi_align(
+        [p.contiguous() for p in p_list], rois.detach().float().contiguous(),
+        levels.long().contiguous(), valid.bool().contiguous(),
+        image_height.float().contiguous(), image_width.float().contiguous(),
+        int(crop_size), [int(s) for s in strides],
+    )
 
 
 def roi_align_single_level(
@@ -378,16 +331,11 @@ def roi_align_single_level(
 ) -> torch.Tensor:
     """Single-level RoIAlign (port of `pallas_roi_align_window` with
     `level_stride`) -> [B, N, S, S, C] float32; rois with `active` False give
-    zeros. CUDA tensors launch the kernels, CPU tensors take
-    `roi_align_single_level_reference`."""
-    if rois.device.type == "cuda":
-        return RoIAlignSingleLevel.apply(
-            features.contiguous(), rois.detach().float().contiguous(),
-            active.bool().contiguous(), image_height.float().contiguous(),
-            image_width.float().contiguous(), crop_size, int(level_stride),
-        )
-    if rois.device.type == "cpu":
-        return roi_align_single_level_reference(
-            features, rois.detach(), active, image_height, image_width, crop_size, level_stride
-        )
-    raise ValueError(f"no RoIAlign for device {rois.device}")
+    zeros. The `tf_eager_od::roi_align` operator with one plane: K2 on CUDA
+    tensors, `roi_align_single_level_reference` on CPU ones."""
+    return torch.ops.tf_eager_od.roi_align(
+        [features.contiguous()], rois.detach().float().contiguous(),
+        torch.zeros_like(active, dtype=torch.long), active.bool().contiguous(),
+        image_height.float().contiguous(), image_width.float().contiguous(),
+        int(crop_size), [int(level_stride)],
+    )
