@@ -187,20 +187,53 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    request through the artifact against the direct call, and the host
    microseconds of one call through the K1 and K4 operators against a
    direct call of their ctypes wrappers at the served shapes.
-12. Prints a JSON line with the records of the five kernels and of the four
+12. Data parallelism (`parallel/{multihost,mesh}.py`). `fpn_ddp_nccl_w1`:
+   `Trainer(data_parallel=True)` over an NCCL group of one process (FPN
+   ResNet-50, stock Pascal config, full width, float32 with TF32 off) takes
+   2 steps over the batches and draws of plain `Trainer`s; its updates
+   must differ from the nearest of 3 plain runs', in norm, by no more than
+   3 times the plain runs' own spread (K5's atomics), both printed; K1, K4
+   and K5 once a step. `fpn_dp2_train`: two processes (this script with `--dp-rank R
+   SPEC`, started with a deadline, killed at it), b = 1 each at full width,
+   over gloo with CUDA tensors on cuda:0 (NCCL refuses two ranks on one
+   GPU; NCCL over cuda:0 and cuda:1 where `torch.cuda.device_count()` >= 2),
+   against one process at B = 2 from the same weights (frozen BatchNorms
+   calibrated, the RPN score layer x20), batch and global draws: losses
+   within rtol 1e-4, counts equal, the updates within GRAD_TOL of their norm
+   and each tensor's within GRAD_TOL of its largest value (or twice what a
+   1e-6 change of the input moves it: phase 7's conditioning, printed), the
+   ranks' parameters bit-equal, K1, K4 and K5 once on each rank; each
+   rank's step time, and its time without the gradient all-reduce (DDP's
+   `no_sync`). `frcnn_eval_dp2`, `fpn_eval_dp2`: `batched_im_detect` and
+   `get_prediction_files` with `data_parallel=2` over two replicas on
+   [cuda:0, cuda:0] at batch 4 against one device at batch 2 (the shards'
+   shape) on the 8 requests: validity equal, boxes within 1e-4 px, scores
+   within 1e-5; K1 once a shard and once an image, FPN's K4 once a shard;
+   the current CUDA device unchanged.
+13. Prints a JSON line with the records of the five kernels and of the four
    RoIAlign kernels' bf16-plane variants (K1's with every shape of phase
    3 under `per_shape`), then as its last line
    `{"ok": true, "device": {...}}`. Any failure raises: exit code != 0.
+
+The port trains on several GPUs with `torchrun --standalone
+--nproc_per_node=N -m tf_eager_object_detection_tpu_torch.scripts.train
+--data_parallel ...` on one host, and with `python -m
+tf_eager_object_detection_tpu_torch.scripts.train --multihost
+--coordinator_address HOST:PORT --num_processes P --process_id R ...` (or
+torchrun's environment) on several; `eval_pascal` / `eval_coco`
+`--data_parallel N` split each batch over the first N GPUs. Spatial
+partitioning is ROADMAP item 8(c), not ported.
 
 Every kernel check of phases 3-5 also calls the kernel through its
 `tf_eager_od` operator (`ops/kernels/library.py`): K1, K4 and K2 bit-equal
 to their wrappers, K5 and K3 as the operators' `register_autograd` backward
 within the wrappers' tolerance of the plain backward. The paths of phases
-6-11 reach every kernel through the operators.
+6-12 reach every kernel through the operators.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -228,6 +261,7 @@ from tf_eager_object_detection_tpu_torch.data.voc import create_pascal_tf_record
 from tf_eager_object_detection_tpu_torch.evaluation.batched_inference import batched_im_detect
 from tf_eager_object_detection_tpu_torch.evaluation.coco_eval import evaluate_coco_detections
 from tf_eager_object_detection_tpu_torch.evaluation.pascal_eval_files import (
+    eval_post_process,
     get_prediction_files,
     write_voc_detection_files,
 )
@@ -252,6 +286,8 @@ from tf_eager_object_detection_tpu_torch.ops.kernels.roi_align_cuda import (
 )
 from tf_eager_object_detection_tpu_torch.ops.prediction import post_ops_prediction
 from tf_eager_object_detection_tpu_torch.ops.sampling import TrainDraws
+from tf_eager_object_detection_tpu_torch.parallel import multihost
+from tf_eager_object_detection_tpu_torch.parallel.mesh import make_parallel_train_step, replicate
 from tf_eager_object_detection_tpu_torch.ref_import import (
     from_jax,
     importers,
@@ -3027,6 +3063,414 @@ def drive_export(requests, card):
     return paths
 
 
+# ----------------------------------------------------------- data parallelism
+DP_TIMEOUT_S = 300.0  # a collective, and the parent's wait for its ranks
+DP_TIMED_STEPS = 4
+DP_WORLD = 2
+DP_ITEMS = (0, 2)  # two landscape requests: one 640x1024 bucket
+DP_PLAIN_RUNS = 3
+DP_SPREAD_FACTOR = 3.0
+EVAL_BOX_TOL, EVAL_SCORE_TOL = 1e-4, 1e-5  # px; eval DP against one device
+
+
+def params_on_host(det) -> dict:
+    return {n: p.detach().cpu().clone() for n, p in det.named_parameters()}
+
+
+def largest_rel_diff(a: dict, b: dict) -> tuple[float, str]:
+    """(largest |a - b| / max|b| over the tensors, its tensor)."""
+    return max((float((a[n] - w).abs().max()) / max(float(w.abs().max()), 1e-30), n)
+               for n, w in b.items())
+
+
+def fpn_ddp_world1(card) -> dict:
+    """`Trainer(data_parallel=True)` over an NCCL group of one process, 2
+    steps at full width (FPN ResNet-50, stock Pascal config, the trainer
+    phase's learning rate), against plain `Trainer`s on the same batches
+    and draws. K5 adds in no fixed order, so plain runs differ too: the DP
+    run's updates must differ from the nearest plain run's, in norm over
+    all parameters, by no more than DP_SPREAD_FACTOR times the largest
+    difference among DP_PLAIN_RUNS plain runs (a tensor's largest
+    difference prints too: it follows a few near-zero biases and varies
+    3x between calls). Launches per step as phase 7's."""
+    cfg = trainer_config("fpn")
+    rng = np.random.RandomState(0)
+    items = make_train_items()
+    batches = []
+    for i in range(2):
+        images, hw, boxes, mask, labels = train_batch([items[i]], cfg, rng)
+        batches.append({"images": images.cpu().numpy(), "image_hw": hw.cpu().numpy(),
+                        "gt_boxes": boxes.cpu().numpy(), "gt_mask": mask.cpu().numpy(),
+                        "gt_labels": labels.cpu().numpy()})
+    probe = model_factory("fpn", "resnet50", cfg, device="cuda", seed=0)
+    start = params_on_host(probe)  # a Trainer re-initializes from the same seed
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    draws = {s + 1: probe.sample_draws(gen, 1, b["images"].shape[1:3])
+             for s, b in enumerate(batches)}
+    del probe
+
+    def update_gap(a, b):
+        """|a - b| / |b - start| over all parameters: how far two runs'
+        updates differ, relative to the update's size."""
+        num = sum(float((a[n] - w).double().square().sum()) for n, w in b.items())
+        den = sum(float((w - start[n]).double().square().sum()) for n, w in b.items())
+        return (num / max(den, 1e-300)) ** 0.5
+
+    def run(parallel):
+        det = model_factory("fpn", "resnet50", cfg, device="cuda", seed=0)
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = Trainer(det, tmp, logging_every_n_steps=1000, summary_every_n_steps=1000,
+                              saving_every_n_steps=1000, seed=0, draws=draws.get,
+                              data_parallel=parallel)
+            reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            trainer.train_one_epoch(iter(batches), steps=len(batches))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3 / len(batches)
+            launches = launch_counts()
+            trainer.close()
+        out = params_on_host(det)
+        del trainer, det
+        torch.cuda.empty_cache()
+        return out, launches, ms
+
+    backend = "nccl"
+    rank, world = multihost.initialize(device="cuda", backend=backend, timeout_s=DP_TIMEOUT_S)
+    require((rank, world) == (0, 1), f"world-1 group: rank {rank}, world {world}")
+    try:
+        dp, launches, dp_ms = run(True)
+    finally:
+        multihost.shutdown()
+    plains = [run(False) for _ in range(DP_PLAIN_RUNS)]
+    expected = {k: PER_STEP["fpn"].get(k, 0) * len(batches) for k in KERNELS}
+    require(launches == expected, f"fpn_ddp_nccl_w1 launches {launches} != {expected}")
+    pairs = [(a[0], b[0]) for i, a in enumerate(plains) for b in plains[i + 1:]]
+    spread = max(update_gap(a, b) for a, b in pairs)
+    gap = min(update_gap(dp, p[0]) for p in plains)
+    tensor_spread = max(largest_rel_diff(a, b) for a, b in pairs)
+    tensor_gap = min(largest_rel_diff(dp, p[0]) for p in plains)
+    print(f"fpn_ddp_nccl_w1: Trainer(data_parallel=True) over {backend} at world size 1, "
+          f"{len(batches)} steps of batch 1 at full width: its updates differ from the nearest "
+          f"plain Trainer's by {gap:.3g} of their norm ({tensor_gap[0]:.3g} of a tensor's "
+          f"largest value at most, {tensor_gap[1]}); {DP_PLAIN_RUNS} plain runs differ among "
+          f"themselves by up to {spread:.3g} ({tensor_spread[0]:.3g}, {tensor_spread[1]}; K5 "
+          f"adds in no fixed order); step {dp_ms:.2f} ms against plain {plains[0][2]:.2f} ms; "
+          f"launches {launches}  ({card})")
+    require(gap <= DP_SPREAD_FACTOR * spread,
+            f"fpn_ddp_nccl_w1: the updates differ by {gap:.3g} of their norm, more than "
+            f"{DP_SPREAD_FACTOR} x the plain runs' {spread:.3g}")
+    return {"fpn_ddp_nccl_w1": launches}
+
+
+def dp_rank(spec_path: str, rank: int) -> int:
+    """One rank of `fpn_dp2_train` (run as `chip_smoke.py --dp-rank R SPEC`):
+    joins the group of the spec, steps once on its rows of the global batch
+    with the global draws (launches counted), writes its parameters, then
+    times DP_TIMED_STEPS more steps, as many without the gradient
+    all-reduce (DDP's `no_sync`: the ranks' parameters part), and one
+    all-reduce of the gradient bytes alone."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = multihost.local_device(spec["devices"][rank])
+    multihost.initialize(init_method=spec["init_method"], num_processes=DP_WORLD,
+                         process_id=rank, backend=spec["backend"], device=device,
+                         timeout_s=DP_TIMEOUT_S)
+    try:
+        cfg = dict(config_factory("pascal", "fpn"))
+        det = model_factory("fpn", "resnet50", cfg, device=device, seed=0)
+        det.load_state_dict(torch.load(spec["state"], weights_only=True))
+        opt = make_optimizer(cfg, det)
+        step = make_parallel_train_step(det, opt)
+        inputs = torch.load(spec["inputs"], weights_only=True)
+        lo, hi = multihost.local_batch_slice(inputs["batch"][0].shape[0], rank, DP_WORLD)
+        batch = tuple(t[lo:hi].to(device) for t in inputs["batch"])
+        draws = TrainDraws(*inputs["draws"]).to(device)
+        reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = step(batch, draws)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t) * 1e3
+        launches = launch_counts()
+        torch.save(params_on_host(det), Path(spec["out"]) / f"params{rank}.pt")
+        times = {}
+        for sync in (True, False):  # then without the gradient all-reduce (DDP's no_sync)
+            times[sync] = []
+            for _ in range(DP_TIMED_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with contextlib.nullcontext() if sync else step.ddp.no_sync():
+                    step(batch, draws)
+                torch.cuda.synchronize()
+                times[sync].append((time.perf_counter() - t) * 1e3)
+        n = sum(p.numel() for p in det.parameters() if p.requires_grad)
+        grads = torch.zeros(n, device=device)
+        reduce_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            torch.distributed.all_reduce(grads)
+            torch.cuda.synchronize()
+            reduce_ms.append((time.perf_counter() - t) * 1e3)
+        report = {"rank": rank, "device": str(device), "launches": launches,
+                  "metrics": {k: float(v) for k, v in metrics.items()}, "first_ms": first_ms,
+                  "step_ms": float(np.median(times[True])),
+                  "no_sync_ms": float(np.median(times[False])),
+                  "allreduce_ms": float(np.median(reduce_ms)), "grad_bytes": 4 * n}
+        with open(Path(spec["out"]) / f"rank{rank}.json", "w") as f:
+            json.dump(report, f)
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def run_ranks(spec: dict, tmp: Path) -> list:
+    """DP_WORLD ranks of `dp_rank` at once; kills every rank left after
+    DP_TIMEOUT_S and raises with the ranks' output if any failed."""
+    spec_path = tmp / "spec.json"
+    spec_path.write_text(json.dumps(spec))
+    logs = [open(tmp / f"rank{r}.log", "w+") for r in range(DP_WORLD)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                               str(spec_path)], stdout=log, stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outputs = []
+    for log in logs:
+        log.seek(0)
+        outputs.append(log.read())
+        log.close()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("fpn_dp2_train ranks failed: " + " ".join(
+            f"--- rank {r} (rc {p.returncode}) ---\n{out[-3000:]}"
+            for r, (p, out) in enumerate(zip(procs, outputs))))
+    return [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(DP_WORLD)]
+
+
+def fpn_dp2_train(card) -> dict:
+    """Two processes, b = 1 each, at full width (FPN ResNet-50, stock Pascal
+    config, float32, frozen BatchNorms calibrated to the batch), against
+    one process at B = 2 from the same weights, batch and global draws:
+    losses within rtol 1e-4 and counts equal, the updates within GRAD_TOL
+    of their norm and each trainable tensor's within GRAD_TOL of its
+    largest value (where a 1e-6 change of the input alone moves an update
+    by more, within twice that move; the move, phase 7's conditioning,
+    prints), the ranks' parameters bit-equal, K1, K4 and K5 launched once
+    on each rank. The RPN score layer is scaled by 20 so that random-weight
+    proposals separate, as in phase 7's checks. Gloo over CUDA tensors where the
+    machine has one GPU (NCCL refuses two ranks on one device), NCCL over
+    two GPUs where it has them."""
+    two = torch.cuda.device_count() >= 2
+    backend = "nccl" if two else "gloo"
+    devices = ["cuda:0", "cuda:1"] if two else ["cuda:0", "cuda:0"]
+    cfg = dict(config_factory("pascal", "fpn"))
+    items = make_train_items()
+    batch = train_batch([items[i] for i in DP_ITEMS], cfg, np.random.RandomState(0))
+    det = model_factory("fpn", "resnet50", cfg, device="cuda", seed=0)
+    calibrate_frozen_bn(det, lambda: det.extractor(batch[0]))
+    with torch.no_grad():  # random-weight proposals separate, as in phase 7's checks
+        det.rpn_head.rpn_score_conv.weight.mul_(20.0)
+    state = {k: v.cpu() for k, v in det.state_dict().items()}
+    draws = det.sample_draws(torch.Generator(device="cuda").manual_seed(7), DP_WORLD,
+                             batch[0].shape[1:3])
+    before = params_on_host(det)
+    del det
+    torch.cuda.empty_cache()
+
+    def single(inputs):
+        det = model_factory("fpn", "resnet50", cfg, device="cuda", seed=0)
+        det.load_state_dict(state)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = make_train_step(det, make_optimizer(cfg, det))(inputs, draws)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        after = params_on_host(det)
+        del det
+        torch.cuda.empty_cache()
+        return {k: float(v) for k, v in metrics.items()}, after, ms
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        torch.save(state, tmp / "state.pt")
+        torch.save({"batch": tuple(t.cpu() for t in batch),
+                    "draws": tuple(None if t is None else t.cpu() for t in draws)},
+                   tmp / "inputs.pt")
+        spec = {"backend": backend, "devices": devices, "init_method": f"file://{tmp / 'store'}",
+                "state": str(tmp / "state.pt"), "inputs": str(tmp / "inputs.pt"), "out": str(tmp)}
+        print(f"fpn_dp2_train: {DP_WORLD} ranks over {backend} on {devices} "
+              f"(torch.cuda.device_count() = {torch.cuda.device_count()})")
+        reports = run_ranks(spec, tmp)
+        ranks = [torch.load(tmp / f"params{r}.pt", weights_only=True) for r in range(DP_WORLD)]
+    want, after, single_ms = single(batch)
+    _, moved_after, _ = single((batch[0] * (1.0 + INPUT_MOVE), *batch[1:]))
+    require(all(torch.equal(ranks[0][n], ranks[1][n]) for n in ranks[0]),
+            "fpn_dp2_train: the ranks' parameters differ")
+    for k, v in want.items():
+        got = sum(r["metrics"][k] for r in reports) / DP_WORLD
+        tol = 1e-4 * abs(v) if k.endswith("loss") else 0.0
+        require(abs(got - v) <= tol, f"fpn_dp2_train {k}: ranks' mean {got} vs B=2 {v}")
+    trainable = [n for n in after if not torch.equal(after[n], before[n])]
+    worst, move_worst, by_move = (0.0, ""), (0.0, ""), 0
+    sq = {"gap": 0.0, "move": 0.0, "update": 0.0}
+    for n in trainable:
+        upd = after[n] - before[n]
+        scale = max(float(upd.abs().max()), 1e-30)
+        diff, moved = ranks[0][n] - before[n] - upd, moved_after[n] - after[n]
+        gap = float(diff.abs().max()) / scale
+        move = float(moved.abs().max()) / scale
+        bound = GRAD_TOL if move <= GRAD_TOL else 2.0 * move
+        by_move += move > GRAD_TOL
+        require(gap <= bound, f"fpn_dp2_train: update of {n} differs by {gap:.3g} of its largest "
+                f"value from the B=2 step's (bound {bound:.3g}; the input x (1 + "
+                f"{INPUT_MOVE:g}) moves it by {move:.3g})")
+        worst, move_worst = max(worst, (gap, n)), max(move_worst, (move, n))
+        for key, t in (("gap", diff), ("move", moved), ("update", upd)):
+            sq[key] += float(t.double().square().sum())
+    gap_all, move_all = ((sq[k] / sq["update"]) ** 0.5 for k in ("gap", "move"))
+    bound_all = GRAD_TOL if move_all <= GRAD_TOL else 2.0 * move_all
+    require(gap_all <= bound_all, f"fpn_dp2_train: the updates differ by {gap_all:.3g} of their "
+            f"norm from the B=2 step's (bound {bound_all:.3g}; the input moves them by "
+            f"{move_all:.3g})")
+    per_step = PER_STEP["fpn"]
+    for r in reports:
+        expected = {k: per_step.get(k, 0) for k in KERNELS}
+        require(r["launches"] == expected,
+                f"fpn_dp2_train rank {r['rank']} launches {r['launches']} != {expected}")
+    print(f"fpn_dp2_train: losses of the ranks' mean within rtol 1e-4 of one process at B=2 "
+          f"(total {sum(r['metrics']['total_loss'] for r in reports) / DP_WORLD:.6f} vs "
+          f"{want['total_loss']:.6f}), counts equal; all {len(trainable)} updates within "
+          f"{gap_all:.3g} of their norm, each within {worst[0]:.3g} of its largest value "
+          f"({worst[1]}; tolerance {GRAD_TOL}, {by_move} tensors bounded by twice their move "
+          f"instead); the input x (1 + {INPUT_MOVE:g}) moves the B=2 step's updates by "
+          f"{move_all:.3g} of their norm, each by up to {move_worst[0]:.3g} "
+          f"({move_worst[1]}); ranks' parameters bit-equal  ({card})")
+    for r in reports:
+        share = 1.0 - r["no_sync_ms"] / r["step_ms"]
+        print(f"fpn_dp2_train rank {r['rank']} on {r['device']}: launches {r['launches']}; "
+              f"first step {r['first_ms']:.2f} ms, then median {r['step_ms']:.2f} ms a step, "
+              f"{r['no_sync_ms']:.2f} ms without the gradient all-reduce (no_sync): the "
+              f"all-reduce of the {r['grad_bytes'] / 2**20:.1f} MiB of trainable gradients over "
+              f"{backend} takes {share:.3f} of the step; one all_reduce of them alone "
+              f"{r['allreduce_ms']:.2f} ms; one process at B=2: {single_ms:.2f} ms (its first "
+              f"step)  ({card})")
+    return {f"fpn_dp2_train_rank{r['rank']}": r["launches"] for r in reports}
+
+
+def eval_dp2(model_type, requests, card) -> dict:
+    """Batched eval over two replicas on cuda:0 (`devices=[cuda:0, cuda:0]`,
+    `data_parallel=2`, batch 4: a shard of 2 a replica) against one device
+    at batch 2, the shards' shapes (cuDNN picks its algorithms by shape, and
+    a last-bit difference reorders near-equal random-weight proposals), on
+    the 8 requests: per image and class, validity equal, boxes within
+    EVAL_BOX_TOL px and scores within EVAL_SCORE_TOL; through
+    `get_prediction_files` with the same replicas, K1 once a
+    shard and once an image, FPN's K4 once a shard; the current CUDA device
+    unchanged. The frozen BatchNorms are set to the statistics of a batch
+    of the requests, and the RPN and RoI score layers scaled as phase 6's
+    CPU checks scale them, so that random-weight proposals and class scores
+    separate (else near-equal scores may come out of the class NMS in
+    another order). Times a `get_prediction_files` of each."""
+    name = f"{PATH_NAME[model_type]}_eval_dp2"
+    cfg = dict(config_factory("pascal", model_type))
+    det = model_factory(model_type, "resnet50", cfg, device="cuda", seed=0)
+    devices = [torch.device("cuda", 0)] * 2
+    items = [preprocess_eval_image(img, cfg) for img in requests]
+    landscape = [it for it in items if it[0].shape[0] < it[0].shape[1]][:BATCH]
+    calibrate_frozen_bn(det, lambda: det.im_detect_batch(
+        *(np.stack([it[k] for it in landscape]) for k in range(3))))
+    rpn_scale, roi_scale = CPU_CHECKS[model_type][3:]
+    with torch.no_grad():  # proposals and class scores of random weights separate
+        det.rpn_head.rpn_score_conv.weight.mul_(rpn_scale)
+        det.roi_head.roi_head_score.weight.mul_(roi_scale)
+    current = torch.cuda.current_device()
+
+    def detections(batch_size, dp):
+        out = {}
+        for idx, item, raw in batched_im_detect(det, items, batch_size, dp,
+                                                devices if dp else None):
+            dets = eval_post_process(
+                *raw, float(item[3]), float(item[4]),
+                max_per_class=cfg["max_objects_per_class_per_image"],
+                score_threshold=cfg["prediction_score_threshold"],
+                nms_iou_threshold=cfg["prediction_nms_iou_threshold"],
+                target_means=tuple(cfg["roi_proposal_means"]),
+                target_stds=tuple(cfg["roi_proposal_stds"]))
+            out[idx] = tuple(t.cpu() for t in dets)
+        return out
+
+    one, two = detections(BATCH // 2, 0), detections(BATCH, 2)
+    box_err = score_err = 0.0
+    n = 0
+    for idx, (b, s, v) in one.items():
+        b2, s2, v2 = two[idx]
+        require(torch.equal(v, v2), f"{name}: image {idx}: validity differs from one device")
+        box_err = max(box_err, float((b[v] - b2[v]).abs().max()) if v.any() else 0.0)
+        score_err = max(score_err, float((s[v] - s2[v]).abs().max()) if v.any() else 0.0)
+        n += int(v.sum())
+    require(n > 0, f"{name}: no detection")
+    require(box_err <= EVAL_BOX_TOL and score_err <= EVAL_SCORE_TOL,
+            f"{name}: box err {box_err} px, score err {score_err} against one device")
+    shards = 2 * sum(-(-sum(tuple(it[0].shape[:2]) == b for it in items) // BATCH)
+                     for b in {tuple(it[0].shape[:2]) for it in items})
+    ids = [f"{i:06d}" for i in range(len(items))]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    replicate(det, devices)
+    torch.cuda.synchronize()
+    replicate_ms = (time.perf_counter() - t) * 1e3
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dp in (0, 2):
+            fmt = str(Path(tmp) / f"dp{dp}_{{}}.txt")
+            kwargs = dict(batch_size=BATCH, data_parallel=dp, devices=devices if dp else None)
+            get_prediction_files(det, iter(items), ids, fmt, **kwargs)  # warm-up
+            reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            get_prediction_files(det, iter(items), ids, fmt, **kwargs)
+            torch.cuda.synchronize()
+            times[dp] = (time.perf_counter() - t) * 1e3
+            launches = launch_counts()
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["nms_alive_sorted"] = shards + len(items)
+    if model_type == "fpn":
+        expected["roi_align_multilevel"] = shards
+    require(launches == expected, f"{name} launches {launches} != {expected}")
+    require(torch.cuda.current_device() == current,
+            f"{name}: the current CUDA device moved from {current} to "
+            f"{torch.cuda.current_device()}")
+    print(f"{name}: 2 replicas on {[str(d) for d in devices]} at batch {BATCH} against one "
+          f"device at batch {BATCH // 2}, {len(items)} requests: {n} detections, validity "
+          f"equal, max box diff {box_err:.3g} px, max score diff {score_err:.3g}; "
+          f"get_prediction_files launches {launches} ({shards} shards), {times[2]:.1f} ms "
+          f"(of which making the second replica {replicate_ms:.1f} ms) against {times[0]:.1f} "
+          f"ms on one device at batch {BATCH}; current device {current} unchanged  ({card})")
+    del det
+    torch.cuda.empty_cache()
+    return {name: launches}
+
+
+def drive_data_parallel(requests, card) -> dict:
+    paths = fpn_ddp_world1(card)
+    paths.update(fpn_dp2_train(card))
+    for model_type in ("faster_rcnn", "fpn"):
+        paths.update(eval_dp2(model_type, requests, card))
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA GPU",
@@ -3036,7 +3480,8 @@ def main() -> int:
     card = card_line()
     print(card)
     kind = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}, "
+          f"torch.cuda.device_count() = {torch.cuda.device_count()}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -3096,6 +3541,8 @@ def main() -> int:
     print(f"import, adam and debug phases done at {time.perf_counter() - t_start:.1f} s")
     paths.update(drive_export(requests, card))
     print(f"export phase done at {time.perf_counter() - t_start:.1f} s")
+    paths.update(drive_data_parallel(requests, card))
+    print(f"data-parallel phase done at {time.perf_counter() - t_start:.1f} s")
 
     per_level_shape = "B=1 N=256 S=14 C=256, one launch per level P2..P5"
     fused_shape = "B=1 N=256 S=14 C=256, P2..P5 of 640x1024"
@@ -3152,4 +3599,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank(sys.argv[3], int(sys.argv[2])))
     sys.exit(main())

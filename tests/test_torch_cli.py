@@ -7,7 +7,8 @@
   JPEG pixels equal after decoding (and `draw_image` equal before any
   encoding).
 - Every command line runs as `python -m ... --help`; `train` refuses the
-  options that are not ported, naming their ROADMAP items.
+  option that is not ported, `--spatial_partition` > 1, naming its ROADMAP
+  item.
 - A tiny rehearsal on the CPU through `voc_rehearsal run` (generate ->
   TFRecords -> `train` -> `eval_pascal`) prints 20 `AP =` lines; the eval
   command line gives the same APs from the local result files and from
@@ -146,15 +147,19 @@ def test_train_refuses_what_is_not_ported(flags, item):
 
 
 @pytest.mark.parametrize("flag", ["--data_parallel", "--multihost", "--backbone_weights=x"])
-def test_train_has_no_option_of_later_items(flag, capsys):
-    """Item 8's flags are not ported; `--backbone_weights` (item 9(a)) is,
-    and is passed on (tests/test_torch_ref_import.py loads it)."""
+def test_train_has_no_option_of_later_items(flag):
+    """Item 8(a)-(b)'s data-parallel flags are ported (tests/
+    test_torch_parallel_trainer.py trains with them), and so is
+    `--backbone_weights` (item 9(a), loaded in tests/test_torch_ref_import.py);
+    each is passed on. The later item 8(c), `--spatial_partition` > 1,
+    refuses before anything is joined or built."""
+    args = train_cli.parse_args([flag])
     if flag.startswith("--backbone_weights"):
-        assert train_cli.parse_args([flag]).backbone_weights == "x"
-        return
-    with pytest.raises(SystemExit):
-        train_cli.parse_args([flag])
-    assert "unrecognized arguments" in capsys.readouterr().err
+        assert args.backbone_weights == "x"
+    else:
+        assert getattr(args, flag[2:]) is True and args.spatial_partition == 1
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 8\(c\)"):
+        train_cli.main([flag, "--spatial_partition", "2", "--device", "cpu"])
 
 
 @pytest.fixture(scope="module")

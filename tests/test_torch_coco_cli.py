@@ -16,8 +16,10 @@
 - `_voc_to_coco_json` writes the JAX script's file byte for byte, and
   `voc_rehearsal coco` (a tiny VOC tree, the untrained Pascal detector's
   checkpoint) prints a `COCO_REHEARSAL` line that parses;
-- `eval_coco --data_parallel 2` raises naming ROADMAP item 8, and
-  `voc_rehearsal consistency` too.
+- `eval_coco --data_parallel` refuses an N that does not divide the batch
+  size or asks for absent CUDA devices; `voc_rehearsal consistency` runs
+  the single and `--data_parallel 8` evaluations and reports JAX's `sp4`
+  variant as waiting for ROADMAP item 8(c).
 """
 
 import contextlib
@@ -31,6 +33,7 @@ from unittest import mock
 
 import numpy as np
 import pytest
+import torch
 
 from tf_eager_object_detection_tpu.evaluation import coco_eval as jax_coco_eval
 from tf_eager_object_detection_tpu.models.model_factory import model_factory as jax_factory
@@ -189,9 +192,16 @@ def test_eval_coco_matches_jax(tmp_path):
 
 
 def test_eval_coco_refuses_data_parallel():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        eval_coco.main(["x.npz", "--annotation_file", "a.json", "--image_dir", ".",
-                        "--data_parallel", "2", "--device", "cpu"])
+    """`--data_parallel` is ported (tests/test_torch_parallel_trainer.py
+    evaluates with it); it refuses, before the checkpoint is read, an N
+    that does not divide the batch size and CUDA devices that are not there."""
+    common = ["x.npz", "--annotation_file", "a.json", "--image_dir", "."]
+    with pytest.raises(ValueError, match="batch_size=8 not divisible by data_parallel=3"):
+        eval_coco.main(common + ["--data_parallel", "3", "--device", "cpu"])
+    have = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"needs {have + 1} CUDA devices"):
+        eval_coco.main(common + ["--data_parallel", str(have + 1), "--batch_size",
+                                 str(have + 1), "--device", "cuda"])
 
 
 # --------------------------------------------------- voc_rehearsal coco
@@ -224,6 +234,26 @@ def test_voc_rehearsal_coco_prints_12_stats(tmp_path):
         assert all(1 <= r["category_id"] <= 20 for r in json.load(f))
 
 
-def test_voc_rehearsal_consistency_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        voc_rehearsal.main(["consistency", "--device", "cpu"])
+def test_voc_rehearsal_consistency_is_not_ported(tmp_path):
+    """`voc_rehearsal consistency` is ported but for JAX's `sp4` variant:
+    over the first 8 test images of a tiny tree, from a checkpoint of the
+    seeded, untrained Pascal detector at the tiny config, `eval_pascal` on
+    the CPU on one device (an image at a time) and as `--data_parallel 8`
+    (a replica an image) writes byte-identical detection files and equal
+    mAPs, and the `CONSISTENCY` line says that `--spatial_partition 4`
+    waits for ROADMAP item 8(c)."""
+    root = tmp_path
+    voc_rehearsal.generate(str(root / "VOC2007"), 2, 20, seed=0)
+    cfg = apply_config_overrides(dict(config_factory("pascal", "faster_rcnn")), TINY)
+    det = model_factory("faster_rcnn", "resnet50", cfg, device="cpu", seed=0)
+    CheckpointManager(str(root / "logs_faster_rcnn_resnet50")).save(det, make_optimizer(cfg, det))
+    args = [f"{_PKG}.voc_rehearsal", "consistency", "--root", str(root), "--n_consistency", "8",
+            "--device", "cpu"]
+    proc = _run(_overrides(args, TINY))
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    summary = json.loads(proc.stdout.split("CONSISTENCY ", 1)[1].splitlines()[0])
+    assert summary["n_images"] == 8 and sorted(summary["mAP"]) == ["dp8", "single"]
+    assert summary["files_identical"] and summary["maps_equal"]
+    assert "ROADMAP item 8(c)" in summary["sp4"]
+    sizes = [os.path.getsize(p) for p in (root / "consistency_faster_rcnn_single").glob("*.txt")]
+    assert len(sizes) == 20 and sum(sizes) > 0

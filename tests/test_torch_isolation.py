@@ -215,6 +215,44 @@ def test_trainer_checkpoints_and_clis_import_without_jax():
     assert proc.stdout.strip().endswith("OK")
 
 
+def test_parallel_modules_import_without_jax():
+    """`parallel/` loads no JAX, and neither does the data-parallel tests'
+    worker (its children must start without it); a group of one joins
+    without torchrun's environment, and the trainer steps over it."""
+    proc = _run(
+        """
+        import sys
+        sys.path.insert(0, "tests")
+        import numpy as np
+        import torch
+        from tf_eager_object_detection_tpu_torch.parallel import mesh, multihost
+        import torch_ddp_worker
+        from tf_eager_object_detection_tpu_torch.config.config_factory import config_factory
+        from tf_eager_object_detection_tpu_torch.models.model_factory import model_factory
+        from tf_eager_object_detection_tpu_torch.training.optimizer import make_optimizer
+
+        assert multihost.initialize(device="cpu", timeout_s=60) == (0, 1)
+        assert multihost.is_primary() and multihost.local_batch_slice(4, 0, 1) == (0, 4)
+        cfg = dict(config_factory("pascal", "faster_rcnn"))
+        cfg.update(scales=[2, 4, 8], tpu_image_buckets=[[64, 64]], tpu_max_gt_boxes=2,
+                   rpn_proposal_train_pre_nms_sample_number=64,
+                   rpn_proposal_train_after_nms_sample_number=16, roi_total_sample_number=8)
+        det = model_factory("faster_rcnn", "resnet50", cfg, device="cpu")
+        step = mesh.make_parallel_train_step(det, make_optimizer(cfg, det))
+        batch = (np.zeros((1, 64, 64, 3), np.float32), np.array([[64, 64]]),
+                 np.array([[[8.0, 8.0, 40.0, 40.0], [0, 0, 0, 0]]], np.float32),
+                 np.array([[True, False]]), np.array([[3, 0]]))
+        metrics = step(batch, torch.Generator().manual_seed(0))
+        assert all(bool(torch.isfinite(v)) for v in metrics.values())
+        multihost.shutdown()
+""" + _NO_JAX + """
+        print("OK")
+        """
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
 def test_vgg16_and_slim_fpn_run_on_cpu_without_importing_jax():
     """VGG16 Faster R-CNN serves and takes a training step (its dropout
     masks drawn with the samplers'), and a slim-style FPN serves, with no

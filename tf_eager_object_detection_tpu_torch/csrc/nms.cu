@@ -258,6 +258,23 @@ nms_scan_kernel(const uint8_t* __restrict__ valid, const unsigned long long* __r
   }
 }
 
+// Makes `device` current for a launch and gives the caller's current device
+// back when it goes out of scope, on success and on error alike.
+struct DeviceGuard {
+  int previous = -1;
+  cudaError_t enter(int device) {
+    cudaError_t err = cudaGetDevice(&previous);
+    if (err != cudaSuccess) {
+      previous = -1;
+      return err;
+    }
+    return cudaSetDevice(device);
+  }
+  ~DeviceGuard() {
+    if (previous >= 0) cudaSetDevice(previous);
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -267,7 +284,8 @@ extern "C" {
 int nms_alive_sorted_cuda(const float* boxes, const uint8_t* valid, int batch, int k,
                           float thr, int max_output, unsigned long long* mask,
                           uint8_t* alive, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  DeviceGuard guard;
+  cudaError_t err = guard.enter(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int words = (k + kTile - 1) / kTile;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

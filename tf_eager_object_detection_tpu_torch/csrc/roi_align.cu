@@ -287,7 +287,8 @@ int roi_align_multilevel_cuda(const void* const* planes, const int* heights, con
   const long long blocks =
       static_cast<long long>(batch) * n * ((crop + kRows - 1) / kRows);
   if (blocks >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  roi_align::DeviceGuard guard;
+  cudaError_t err = guard.enter(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto run = bf16 ? launch<unsigned short> : launch<float>;
   return static_cast<int>(run(planes, heights, widths, strides, n_levels, rois, levels, valid,

@@ -260,7 +260,8 @@ int roi_align_multilevel_backward_cuda(void* const* grad_planes, const int* heig
     for (int l = 0; l < n_levels; ++l) ok = ok && aligned16(grad_planes[l]);
     if (!ok) return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  cudaError_t err = cudaSetDevice(device);
+  roi_align::DeviceGuard guard;
+  cudaError_t err = guard.enter(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto grad =
       roi_align::make_pyramid<float>(grad_planes, heights, widths, strides, n_levels);

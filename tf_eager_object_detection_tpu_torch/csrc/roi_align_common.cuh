@@ -111,6 +111,23 @@ inline Pyramid<T> make_pyramid(const void* const* planes, const int* heights, co
   return pyr;
 }
 
+// Makes `device` current for a launch and gives the caller's current device
+// back when it goes out of scope, on success and on error alike.
+struct DeviceGuard {
+  int previous = -1;
+  cudaError_t enter(int device) {
+    cudaError_t err = cudaGetDevice(&previous);
+    if (err != cudaSuccess) {
+      previous = -1;
+      return err;
+    }
+    return cudaSetDevice(device);
+  }
+  ~DeviceGuard() {
+    if (previous >= 0) cudaSetDevice(previous);
+  }
+};
+
 inline bool launch_args_ok(int n_levels, int crop, int batch, int n, int c) {
   return n_levels >= 1 && n_levels <= kMaxLevels && crop >= 2 && crop <= kMaxCrop &&
          batch >= 1 && n >= 1 && c >= 1;

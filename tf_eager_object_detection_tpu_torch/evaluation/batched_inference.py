@@ -4,19 +4,32 @@
 Groups the stream by padded bucket shape and flushes bucket-uniform batches
 through `detector.im_detect_batch`, so the backbone and the RPN NMS run once
 per batch. Results are yielded per image.
+
+`data_parallel=N` splits each flushed batch into N equal shards, one a
+replica of the detector (`parallel/mesh.py::replicate`) on the first N
+devices of its type (cuda:0 .. cuda:N-1; the CPU N times), or on
+`devices` where given (`[cpu, cpu]`, or `[cuda:0, cuda:0]` on a machine
+with one GPU). The host issues the shards one after another; the work of
+replicas on different GPUs overlaps on the devices, as the launches are
+asynchronous. Each image's outputs stay on its replica's device. A
+`batch_size` that N does not divide is refused, and so is an N above
+`torch.cuda.device_count()` for CUDA.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Iterator, Tuple
+from contextlib import nullcontext
+from typing import Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 __all__ = ["batched_im_detect"]
 
 
 def batched_im_detect(
-    detector, items: Iterable, batch_size: int = 8
+    detector, items: Iterable, batch_size: int = 8, data_parallel: int = 0,
+    devices: Optional[Sequence] = None,
 ) -> Iterator[Tuple[int, tuple, tuple]]:
     """Yields (stream_index, item, (softmax, deltas, rois, roi_valid)).
 
@@ -25,7 +38,27 @@ def batched_im_detect(
     along untouched. A final partial batch is padded by repeating its last
     element, and padded rows are dropped before yielding. Yield order is
     batch-completion order, NOT stream order: index by `stream_index`.
+    The arguments are checked, and the replicas made, at the call.
     """
+    replicas = [detector]
+    if data_parallel:
+        from tf_eager_object_detection_tpu_torch.parallel.mesh import (
+            check_eval_data_parallel,
+            eval_devices,
+            replicate,
+        )
+
+        check_eval_data_parallel(batch_size, data_parallel,
+                                 detector.device if devices is None else None)
+        devices = eval_devices(detector.device, data_parallel) if devices is None else devices
+        if len(devices) != data_parallel:
+            raise ValueError(f"data_parallel={data_parallel} with {len(devices)} devices")
+        replicas = replicate(detector, devices)
+    return _batches(replicas, items, batch_size)
+
+
+def _batches(replicas, items, batch_size):
+    shard = batch_size // len(replicas)
 
     def flush(group):
         padded = [it for _, it in group]
@@ -33,9 +66,16 @@ def batched_im_detect(
         images = np.stack([it[0] for it in padded])
         hws = np.stack([it[1] for it in padded])
         scales = np.asarray([it[2] for it in padded], np.float32)
-        sm, deltas, rois, roi_valid = detector.im_detect_batch(images, hws, scales)
+        if len(replicas) == 1:
+            outs = [replicas[0].im_detect_batch(images, hws, scales)]
+        else:
+            outs = []
+            for r, rep in enumerate(replicas):
+                rows = slice(r * shard, (r + 1) * shard)
+                with _on(rep.device):
+                    outs.append(rep.im_detect_batch(images[rows], hws[rows], scales[rows]))
         for i, (idx, item) in enumerate(group):
-            yield idx, item, (sm[i], deltas[i], rois[i], roi_valid[i])
+            yield idx, item, tuple(t[i % shard] for t in outs[i // shard])
 
     pending: dict = {}
     for idx, item in enumerate(items):
@@ -45,3 +85,8 @@ def batched_im_detect(
             yield from flush(pending.pop(key))
     for group in pending.values():
         yield from flush(group)
+
+
+def _on(device):
+    """The replica's device as the current CUDA device for its shard."""
+    return torch.cuda.device(device) if device.type == "cuda" else nullcontext()

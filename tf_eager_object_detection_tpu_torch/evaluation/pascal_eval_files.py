@@ -6,13 +6,14 @@ batch per bucket) -> per-class decode, clip to the raw image, drop boxes
 with a side under `min_size`, and ONE NMS call over all foreground classes
 at once (the NMS kernel K1 on the card; JAX vmaps its NMS over the classes)
 -> a per-image score cap -> per-class `{cls}.txt` files in the VOC devkit's
-format (1-based coordinates). Batched eval's `data_parallel` and
-`spatial_partition` are not ported yet (ROADMAP item 8).
+format (1-based coordinates). `data_parallel` / `devices` go to
+`batched_im_detect`; spatial partitioning is not ported yet (ROADMAP item
+8(c)).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, Sequence
+from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -85,14 +86,17 @@ def get_prediction_files(
     max_objects_per_image: int = 50,
     min_size: float = 10.0,
     batch_size: int = 8,
+    data_parallel: int = 0,
+    devices: Optional[Sequence] = None,
 ) -> List[str]:
     """Runs eval inference and writes per-class VOC result files; returns
     their paths. `eval_iterator` yields (image [Hp, Wp, 3], image_hw [2],
-    scale, raw_h, raw_w) in the order of `image_ids`."""
+    scale, raw_h, raw_w) in the order of `image_ids`. `data_parallel` > 0
+    splits each batch over that many replicas (`batched_im_detect`)."""
     cfg = detector.cfg
     per_image: List[List[np.ndarray] | None] = [None] * len(image_ids)
     for img_idx, item, (sm, deltas, rois, roi_valid) in batched_im_detect(
-        detector, eval_iterator, batch_size
+        detector, eval_iterator, batch_size, data_parallel, devices
     ):
         boxes_c, scores_c, valid_c = (t.cpu().numpy() for t in eval_post_process(
             sm, deltas, rois, roi_valid, float(item[3]), float(item[4]),

@@ -20,8 +20,10 @@ around the RPN and RoI heads.
 
 A subclass builds its modules, calls `_place(seed)`, and defines
 `_detect(images, image_hw) -> (rois [B, R, 4], roi_valid [B, R],
-roi_softmax [B, R, C], roi_deltas [B, R, C, 4])` and `min_edge`, the
-smallest box side `predict` keeps; a detector whose RoI head has dropout
+roi_softmax [B, R, C], roi_deltas [B, R, C, 4])`, `feature_grids(h, w)`
+(the RPN's feature map sizes for a padded image, from which
+`sample_draws` sizes a batch's draws before `loss_fn` runs) and
+`min_edge`, the smallest box side `predict` keeps; a detector whose RoI head has dropout
 (VGG16) sets `roi_dropout`, and `_detection_loss` draws the head's keep
 masks with the samplers' numbers. Serving never drops out.
 
@@ -195,6 +197,23 @@ class ServingDetector(nn.Module):
                                   torch.as_tensor(gt_boxes)[None],
                                   torch.as_tensor(gt_mask)[None], torch.as_tensor(labels)[None])
 
+    def feature_grids(self, height: int, width: int) -> list:
+        """(rows, cols) of each feature map the RPN reads for an image padded
+        to height x width, in anchor order."""
+        raise NotImplementedError
+
+    def sample_draws(self, generator: torch.Generator, batch: int, bucket) -> TrainDraws:
+        """The draws `loss_fn` would make from `generator` for `batch` images
+        padded to `bucket` (H, W), made before it runs: the anchors of the
+        bucket's feature grids, the training proposals and the RoI samples
+        of an image, and the RoI head's dropout masks where it has them."""
+        cfg = self.cfg
+        h, w = (int(d) for d in bucket)
+        anchors = self.num_anchors * sum(gh * gw for gh, gw in self.feature_grids(h, w))
+        return TrainDraws.sample(generator, batch, anchors,
+                                 cfg["rpn_proposal_train_after_nms_sample_number"],
+                                 cfg["roi_total_sample_number"], self.roi_dropout)
+
     def _draws_for_one(self, draws, num_anchors: int, num_rois: int) -> TrainDraws:
         """`draws` as `loss_fn` takes it, for one image, on the device."""
         if isinstance(draws, TrainDraws):
@@ -261,6 +280,9 @@ class ServingDetector(nn.Module):
                 self.generator if draws is None else draws, b, anchors.shape[0],
                 cfg["rpn_proposal_train_after_nms_sample_number"], s, self.roi_dropout,
             )
+        elif tuple(draws.anchor_fg.shape) != (b, anchors.shape[0]):
+            raise ValueError(f"draws for {tuple(draws.anchor_fg.shape)} (images, anchors), the "
+                             f"batch has {(b, anchors.shape[0])}")
         with torch.no_grad():
             rois, roi_valid = propose()
             at = anchor_target(

@@ -107,6 +107,11 @@ class FasterRCNNDetector(ServingDetector):
                 )
         return self._anchor_cache[key]
 
+    def feature_grids(self, height: int, width: int) -> list:
+        """The one stride-16 map: every stride-2 stage of the extractor
+        rounds up (SAME padding, or an explicit pad of the same effect)."""
+        return [(-(-height // self.stride), -(-width // self.stride))]
+
     # ----------------------------------------------------------- shared path
     def _backbone_rpn(self, images: torch.Tensor):
         """-> (feats [B, h, w, 512 or 1024] in the compute dtype, score and bbox maps

@@ -214,6 +214,10 @@ class FPNDetector(ServingDetector):
                 )
         return self._anchor_cache[key]
 
+    def feature_grids(self, height: int, width: int) -> list:
+        """p2..p6: every stride-2 stage rounds up, p6 (p5[::2, ::2]) too."""
+        return [(-(-height // s), -(-width // s)) for s in self.strides]
+
     def _level_valid_mask(self, grids, image_hw: torch.Tensor) -> torch.Tensor:
         """[B, A_total] bool: anchors whose cell lies on each image's valid grid."""
         h, w = image_hw[:, 0], image_hw[:, 1]

@@ -83,6 +83,14 @@ class TrainDraws(NamedTuple):
         """The draws on `device`."""
         return TrainDraws(*(None if t is None else t.to(device) for t in self))
 
+    def rows(self, lo: int, hi: int, num_samples: int) -> "TrainDraws":
+        """The draws of images [lo, hi) of the batch: the samplers' rows, and
+        the dropout masks' rows of those images' `num_samples` slots each.
+        The rows of consecutive ranges, concatenated, give the draws back."""
+        keep = self.dropout_keep
+        return TrainDraws(*(t[lo:hi] for t in self[:5]),
+                          None if keep is None else keep[:, lo * num_samples:hi * num_samples])
+
 
 def _top(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(values, indices) of the k largest along the last dim; ties to the

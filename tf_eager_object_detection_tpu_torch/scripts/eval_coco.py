@@ -10,7 +10,9 @@ evaluator (`evaluation/coco_eval.py`, no pycocotools).
 
 CKPT is a checkpoint directory of the port's trainer or a params `.npz` in
 the JAX package's format. Runs on the card unless `--device cpu` is given.
-Not ported yet: `--data_parallel` (ROADMAP item 8).
+`--data_parallel N` splits each batch of `--batch_size` images over
+replicas of the detector on the first N GPUs (with `--device cpu`, N
+replicas on the CPU).
 """
 
 import argparse
@@ -33,7 +35,7 @@ def parse_args(argv=None):
     p.add_argument("--batch_size", type=int, default=8,
                    help="bucket-grouped im_detect_batch size (1 = one image at a time)")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="not ported yet (ROADMAP item 8); only 0 is accepted")
+                   help="split each batch over this many replicas (0 = one device)")
     p.add_argument("--config_override", action="append", default=[], metavar="KEY=JSON",
                    help="override one config key (JSON value; repeatable)")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
@@ -44,9 +46,9 @@ def parse_args(argv=None):
 def main(argv=None):
     """Returns the 12 stats."""
     args = parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError("--data_parallel: batched eval over several devices is not "
-                                  "ported yet (ROADMAP item 8)")
+    from tf_eager_object_detection_tpu_torch.parallel.mesh import check_eval_data_parallel
+
+    check_eval_data_parallel(args.batch_size, args.data_parallel, args.device)
     from tf_eager_object_detection_tpu_torch.config.config_factory import (
         apply_config_overrides,
         config_factory,
@@ -72,7 +74,7 @@ def main(argv=None):
     # batches complete out of stream order: key the results by stream index
     per_index = {}
     for idx, item, (sm, deltas, rois, roi_valid) in batched_im_detect(
-            detector, iterator, args.batch_size):
+            detector, iterator, args.batch_size, args.data_parallel):
         boxes_c, scores_c, valid_c = (t.cpu().numpy() for t in eval_post_process(
             sm, deltas, rois, roi_valid, float(item[3]), float(item[4]),
             max_per_class=cfg["max_objects_per_class_per_image"],

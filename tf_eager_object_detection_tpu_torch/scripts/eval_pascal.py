@@ -8,7 +8,10 @@ and prints each class's AP and the mAP (detectron-style `voc_eval`).
 
 CKPT is a checkpoint directory of the port's trainer or a params `.npz` in
 the JAX package's format. Runs on the card unless `--device cpu` is given.
-Not ported yet: `--data_parallel` and `--spatial_partition` (ROADMAP item 8).
+`--data_parallel N` splits each batch of `--batch_size` images over
+replicas of the detector on the first N GPUs (with `--device cpu`, N
+replicas on the CPU); `--spatial_partition` > 1 is not ported yet
+(ROADMAP item 8(c)).
 """
 
 import argparse
@@ -41,6 +44,10 @@ def parse_args(argv=None):
                    help="score the result files already in --result_dir, run no model")
     p.add_argument("--batch_size", type=int, default=8,
                    help="bucket-grouped im_detect_batch size (1 = one image at a time)")
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="split each batch over this many replicas (0 = one device)")
+    p.add_argument("--spatial_partition", type=int, default=0,
+                   help="not ported yet (ROADMAP item 8(c)); only 0 or 1 is accepted")
     p.add_argument("--config_override", action="append", default=[], metavar="KEY=JSON",
                    help="override one config key (JSON value; repeatable)")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
@@ -50,6 +57,13 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    from tf_eager_object_detection_tpu_torch.parallel.mesh import (
+        check_eval_data_parallel,
+        refuse_spatial_partition,
+    )
+
+    refuse_spatial_partition(args.spatial_partition)
+    check_eval_data_parallel(args.batch_size, args.data_parallel, args.device)
     from tf_eager_object_detection_tpu_torch.config.config_factory import (
         apply_config_overrides,
         config_factory,
@@ -96,6 +110,7 @@ def main(argv=None):
             max_objects_per_class=cfg["max_objects_per_class_per_image"],
             max_objects_per_image=cfg["max_objects_per_image"],
             batch_size=args.batch_size,
+            data_parallel=args.data_parallel,
         )
 
     annopath = os.path.join(args.root_path, "Annotations", "{:s}.xml")

@@ -10,8 +10,8 @@ the JAX package's format, or with `--use_tf_faster_rcnn_model`,
 (`ref_import/cli.py`). The image is read as JAX reads it: cv2, else PIL
 (`models/detector.py::read_image_file`), so formats cv2 cannot decode
 (TGA, PCX, ICO, ...) are read too; the overlay reads it with PIL. Runs on
-the card unless `--device cpu` is given. Not ported yet:
-`--spatial_partition` (ROADMAP item 8).
+the card unless `--device cpu` is given. `--spatial_partition` > 1 is not
+ported yet (ROADMAP item 8(c)).
 """
 
 import argparse
@@ -34,9 +34,14 @@ def main(argv=None):
     p.add_argument("--score_threshold", type=float, default=0.3)
     p.add_argument("--config_override", action="append", default=[], metavar="KEY=JSON",
                    help="override one config key (JSON value; repeatable)")
+    p.add_argument("--spatial_partition", type=int, default=1,
+                   help="not ported yet (ROADMAP item 8(c)); only 1 is accepted")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
     add_import_flags(p)
     args = p.parse_args(argv)
+    from tf_eager_object_detection_tpu_torch.parallel.mesh import refuse_spatial_partition
+
+    refuse_spatial_partition(args.spatial_partition)
 
     from tf_eager_object_detection_tpu_torch.config.config_factory import (
         apply_config_overrides,

@@ -12,9 +12,25 @@ stay float32). `--backbone_weights` starts a fresh run from a pretrained
 backbone: a keras-applications `.h5` path, an `https://` URL (optionally
 `#md5=<hex>`), `keras` (the reference's release file for the backbone,
 downloaded once into `~/.cache/tpu_od`) or a slim `vgg_16` TF checkpoint
-prefix (VGG16); a restored checkpoint takes precedence over it. Not ported
-yet: `--data_parallel`, `--multihost` and `--spatial_partition` (ROADMAP
-item 8).
+prefix (VGG16); a restored checkpoint takes precedence over it.
+
+Data parallelism, one process a GPU over `torch.distributed` (NCCL on the
+card, gloo with `--device cpu`), the global batch being `--batch_size`
+(per device) times the world size, every rank building the same batch
+stream from `--seed` and training on its rows of each batch:
+
+    torchrun --standalone --nproc_per_node=N \
+        -m tf_eager_object_detection_tpu_torch.scripts.train --data_parallel ...
+    python -m tf_eager_object_detection_tpu_torch.scripts.train --multihost \
+        --coordinator_address HOST:PORT --num_processes P --process_id R ...
+
+`--data_parallel` is one host, one process a local GPU, started by
+torchrun (without torchrun's environment it trains as a group of one
+process); `--multihost` joins over the coordinator flags (each process's
+GPU is `cuda:$LOCAL_RANK`, 0 by default), or from torchrun's environment
+(`torchrun --nnodes ...`). Only rank 0 logs and writes summaries; rank 0
+writes the checkpoints. `--spatial_partition` > 1 is not ported yet
+(ROADMAP item 8(c)).
 """
 
 import argparse
@@ -56,12 +72,61 @@ def parse_args(argv=None):
                         "prefix; a restored checkpoint takes precedence")
     p.add_argument("--config_override", action="append", default=[], metavar="KEY=JSON",
                    help="override one config key (value parsed as JSON; repeatable)")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="one process a local GPU over torch.distributed (start with torchrun "
+                        "--standalone --nproc_per_node=N)")
+    p.add_argument("--multihost", action="store_true",
+                   help="data parallelism over several hosts (every process runs this command "
+                        "line with the same flags; the global batch spans all processes)")
+    p.add_argument("--coordinator_address", default=None,
+                   help="with --multihost: host:port of process 0 (default: torchrun's "
+                        "environment)")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="with --multihost: the number of processes")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="with --multihost: this process's rank")
+    p.add_argument("--spatial_partition", type=int, default=1,
+                   help="not ported yet (ROADMAP item 8(c)); only 1 is accepted")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
     return p.parse_args(argv)
 
 
+def _join(args) -> tuple:
+    """(device, world size): join the process group where a data-parallel
+    flag asks for it. Every refusal comes before the group is joined."""
+    from tf_eager_object_detection_tpu_torch.parallel.mesh import refuse_spatial_partition
+
+    refuse_spatial_partition(args.spatial_partition)
+    coordinated = [args.coordinator_address, args.num_processes, args.process_id]
+    if any(v is not None for v in coordinated) and not args.multihost:
+        raise SystemExit("--coordinator_address, --num_processes and --process_id go with "
+                         "--multihost")
+    if not (args.data_parallel or args.multihost):
+        return args.device, 1
+    if args.multihost and args.coordinator_address is None and "RANK" not in os.environ:
+        raise SystemExit("--multihost needs --coordinator_address, --num_processes and "
+                         "--process_id, or torchrun's environment")
+    from tf_eager_object_detection_tpu_torch.parallel import multihost
+
+    device = multihost.local_device(args.device)
+    _, world = multihost.initialize(args.coordinator_address, args.num_processes,
+                                    args.process_id, device=device)
+    return device, world
+
+
 def main(argv=None):
     args = parse_args(argv)
+    device, world = _join(args)
+    try:
+        return _train(args, device, world)
+    finally:
+        if args.data_parallel or args.multihost:
+            from tf_eager_object_detection_tpu_torch.parallel.multihost import shutdown
+
+            shutdown()
+
+
+def _train(args, device, world):
     from tf_eager_object_detection_tpu_torch.config.config_factory import (
         apply_config_overrides,
         config_factory,
@@ -80,12 +145,12 @@ def main(argv=None):
         lrs = cfg["learning_rate_multi_lrs"]
         scale = args.learning_rate / lrs[0]
         cfg["learning_rate_multi_lrs"] = [lr * scale for lr in lrs]
-    detector = model_factory(args.model_type, args.backbone, cfg, device=args.device,
-                             seed=args.seed)
+    detector = model_factory(args.model_type, args.backbone, cfg, device=device, seed=args.seed)
 
     data_cfg = {
         "model_config": cfg,
-        "batch_size": cfg["tpu_train_batch_size_per_device"],
+        # the global batch; each rank trains on its rows
+        "batch_size": cfg["tpu_train_batch_size_per_device"] * world,
         "preprocessing_type": args.preprocessing_type,
         "seed": args.seed,
     }
@@ -108,6 +173,8 @@ def main(argv=None):
         restore_ckpt_path=args.restore_ckpt_path,
         seed=args.seed,
         backbone_weights=args.backbone_weights,
+        data_parallel=args.data_parallel,
+        multihost=args.multihost,
     )
     trainer.train(batches, args.epochs or cfg["epochs"], args.steps_per_epoch)
 

@@ -21,8 +21,16 @@ rate (`--lr`, 2.5e-4: the stock 1e-3 diverges from random weights).
 (the test annotations written as a COCO file, difficult objects as
 `iscrowd`) and prints `COCO_REHEARSAL {json}` with the 12 COCO stats.
 Training is one process (the JAX script's `--chunks` worked around a
-leak of its TPU runtime). The `consistency` command is not ported yet
-(ROADMAP item 8).
+leak of its TPU runtime). `consistency` evaluates the trained checkpoint
+on the first `--n_consistency` test images twice on the CPU, as JAX runs
+it on 8 CPU devices: on one device, one image at a time, and with
+`--data_parallel 8` at batch 8 (eight replicas, one image each), and
+exits 1 unless the VOC detection files are byte-identical and the mAPs
+equal; it prints `CONSISTENCY {json}`. JAX's single variant runs at batch
+8, where XLA's per-image numerics do not depend on the batch; the CPU's
+convolutions here do, in the last bits, which can move a printed digit.
+JAX's third variant, `--spatial_partition 4`, waits for ROADMAP item
+8(c), and the line says so.
 """
 
 from __future__ import annotations
@@ -270,6 +278,65 @@ def cmd_eval(args):
     return summary
 
 
+# "single" evaluates one image at a time, as each of dp8's replicas does: a
+# device at batch 8 sums its convolutions in another order than at batch 1
+# (the CPU library's, and cuDNN's, choice by batch size), which may move a
+# printed digit of a detection file
+CONSISTENCY_VARIANTS = {"single": ["--batch_size", "1"],
+                        "dp8": ["--batch_size", "8", "--data_parallel", "8"]}
+
+
+def cmd_consistency(args) -> bool:
+    """Eval of the first `--n_consistency` test images on one device, one
+    image at a time, and as `--data_parallel 8` at batch 8 (a replica an
+    image), on the CPU -> whether the detection files are byte-identical
+    and the mAPs equal."""
+    voc_root, _, logs = _dirs(args)
+    main_dir = os.path.join(voc_root, "ImageSets", "Main")
+    with open(os.path.join(main_dir, "test.txt")) as f:
+        ids = f.read().split()[: args.n_consistency]
+    with open(os.path.join(main_dir, "consistency.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+    maps, result_dirs = {}, {}
+    for name, flags in CONSISTENCY_VARIANTS.items():
+        rdir = os.path.join(args.root, f"consistency_{args.model_type}_{name}")
+        if os.path.exists(rdir):
+            shutil.rmtree(rdir)
+        result_dirs[name] = rdir
+        cmd = _module("eval_pascal") + [
+            logs, "--root_path", voc_root, "--model_type", args.model_type,
+            "--backbone", args.backbone, "--mode", "consistency", "--result_dir", rdir,
+            "--device", "cpu", *flags]
+        for ov in args.config_override:
+            cmd += ["--config_override", ov]
+        out = _run(cmd, capture_output=True, text=True)
+        for line in out.stdout.splitlines():
+            if line.strip().startswith("mAP"):
+                maps[name] = float(line.split()[-1])
+    identical = True
+    for cls in PASCAL_CLASSES:
+        blobs = set()
+        for rdir in result_dirs.values():
+            path = os.path.join(rdir, f"{cls}.txt")
+            with open(path, "rb") as f:
+                blobs.add(f.read())
+        if len(blobs) != 1:
+            identical = False
+            print(f"MISMATCH in {cls}.txt across variants")
+    maps_equal = len(maps) == len(CONSISTENCY_VARIANTS) and len(set(maps.values())) == 1
+    summary = {
+        "proof": "rehearsal_consistency",
+        "model_type": args.model_type,
+        "n_images": len(ids),
+        "mAP": maps,
+        "files_identical": identical,
+        "maps_equal": maps_equal,
+        "sp4": "not run: spatial partitioning waits for ROADMAP item 8(c)",
+    }
+    print("CONSISTENCY " + json.dumps(summary))
+    return identical and maps_equal
+
+
 def _voc_to_coco_json(voc_root: str, split: str, out_path: str) -> int:
     """Write the split's VOC annotations as a COCO annotation file ->
     the number of annotations. Categories 1..20 in PASCAL_CLASSES order;
@@ -366,6 +433,8 @@ def main(argv=None):
                    help="passed to the train command line (evaluation takes it as "
                         "--config_override tpu_compute_dtype=...)")
     p.add_argument("--eval_batch_size", type=int, default=8)
+    p.add_argument("--n_consistency", type=int, default=8,
+                   help="consistency: the number of test images to evaluate")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
     p.add_argument("--resume", action="store_true",
                    help="keep the logs directory and continue from its latest checkpoint; "
@@ -373,8 +442,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     if args.cmd == "consistency":
-        raise NotImplementedError("consistency: multi-device eval is not ported yet "
-                                  "(ROADMAP item 8)")
+        return 0 if cmd_consistency(args) else 1
     if args.cmd == "gen":
         cmd_gen(args)
         return 0

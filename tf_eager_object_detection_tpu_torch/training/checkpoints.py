@@ -14,6 +14,13 @@ that is already saved does nothing (the epoch-end save right after an
 interval save). Restore precedence, as the trainer applies it: an explicit
 checkpoint directory, else the latest step in the training directory.
 
+With `distributed=True` (the ranks of a data-parallel process group, whose
+states are equal), rank 0 writes and every rank then waits at a barrier,
+so that no rank reads a step before it is whole; a restore waits at a
+barrier, then every rank loads the step that rank 0 chose, optimizer state
+included (DistributedDataParallel broadcasts parameters and buffers, not
+the momentum traces).
+
 `save_params` / `load_params` write and read parameters alone in the JAX
 package's flat `.npz` format (`"scope/.../kernel"` keys, flax layouts), so
 the JAX `load_params` reads what the port saved and the port reads what the
@@ -42,10 +49,11 @@ _FILE_RE = re.compile(r"^ckpt_(\d+)\.pt$")
 class CheckpointManager:
     """Training-state checkpoints in `directory`, keyed by step."""
 
-    def __init__(self, directory: str, max_to_keep: int = 5):
+    def __init__(self, directory: str, max_to_keep: int = 5, distributed: bool = False):
         self._dir = os.path.abspath(directory)
         os.makedirs(self._dir, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.distributed = distributed
 
     def _path(self, step: int) -> str:
         return os.path.join(self._dir, f"ckpt_{step:08d}.pt")
@@ -58,6 +66,12 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, detector, optimizer) -> None:
+        if not self.distributed or torch.distributed.get_rank() == 0:
+            self._write(detector, optimizer)
+        if self.distributed:
+            torch.distributed.barrier()
+
+    def _write(self, detector, optimizer) -> None:
         step = optimizer.count
         if step in self.all_steps():
             return
@@ -79,6 +93,11 @@ class CheckpointManager:
         `optimizer`; returns the step restored, or None where the directory
         holds no checkpoint (nothing is changed then)."""
         step = step if step is not None else self.latest_step()
+        if self.distributed:
+            torch.distributed.barrier()
+            chosen = [step]
+            torch.distributed.broadcast_object_list(chosen, src=0)
+            step = chosen[0]
         if step is None:
             return None
         state = torch.load(self._path(step), map_location="cpu", weights_only=True)

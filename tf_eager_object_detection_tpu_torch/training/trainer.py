@@ -9,12 +9,24 @@ Restore precedence: an explicit checkpoint directory, else the latest step
 in the training directory, else the seeded init with the pretrained
 backbone of `backbone_weights` where given.
 
-One device; data parallelism, multiple hosts and spatial partitioning are
-not ported yet (ROADMAP item 8). The step count lives on the host, and a
-step reads nothing back from the device except at logging and summary
-steps. The samplers' random numbers of step n come from `draws(n)` where
-the caller gives that callable, else from a `torch.Generator` on the
-detector's device seeded with `seed + 1`.
+The step count lives on the host, and a step reads nothing back from the
+device except at logging and summary steps. The samplers' random numbers
+of step n come from `draws(n)` where the caller gives that callable, else
+from a `torch.Generator` on the detector's device seeded with `seed + 1`.
+
+`data_parallel=True` or `multihost=True` trains over the default process
+group (`parallel/multihost.py::initialize` first; the port makes no
+difference between one host and several): every rank is fed the same
+global batch stream, takes its rows of each batch (`local_batch_slice`,
+which refuses a batch the world size does not divide, on every rank
+before the step's first collective) and the global batch's draws, which
+`parallel/mesh.py::make_parallel_train_step` slices, and steps in
+lockstep. At logging and summary steps only, one `all_reduce` averages
+the metrics over the ranks, so that rank 0 prints and writes the global
+batch's losses; only rank 0 prints, writes the metric events and the
+overlays (its `predict` runs on the detector itself). Every rank takes
+part in a checkpoint save and restore (`CheckpointManager(distributed=
+True)`). Spatial partitioning is not ported yet (ROADMAP item 8(c)).
 """
 
 from __future__ import annotations
@@ -27,7 +39,13 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from tf_eager_object_detection_tpu_torch.parallel.mesh import (
+    make_parallel_train_step,
+    refuse_spatial_partition,
+)
+from tf_eager_object_detection_tpu_torch.parallel.multihost import local_batch_slice
 from tf_eager_object_detection_tpu_torch.training.checkpoints import CheckpointManager
 from tf_eager_object_detection_tpu_torch.training.metrics import MetricWriter
 from tf_eager_object_detection_tpu_torch.training.optimizer import make_optimizer
@@ -102,13 +120,24 @@ class Trainer:
         seed: int = 0,
         draws: Optional[Callable[[int], object]] = None,
         backbone_weights: Optional[str] = None,
+        data_parallel: bool = False,
+        multihost: bool = False,
+        spatial_partition: int = 1,
     ):
         """`detector` is re-initialized from `seed` (`init_params`), its
         backbone loaded from `backbone_weights` where given
         (`ref_import/cli.py::load_backbone_weights`), then restored from
         `restore_ckpt_path` or the latest checkpoint in `train_dir`, which
         takes precedence over both. `draws(step)` -> the `TrainDraws` of the
-        1-based step, for a caller that must fix them (a parity test)."""
+        1-based step (of the global batch under data parallelism), for a
+        caller that must fix them (a parity test)."""
+        refuse_spatial_partition(spatial_partition)
+        self.parallel = bool(data_parallel or multihost)
+        if self.parallel and not dist.is_initialized():
+            raise RuntimeError("data_parallel / multihost train over the default process "
+                               "group: call parallel.multihost.initialize first")
+        self.rank, self.world = (dist.get_rank(), dist.get_world_size()) if self.parallel else (0, 1)
+        self.is_primary = self.rank == 0
         self.det = detector
         detector.init_params(seed)
         if backbone_weights:
@@ -116,12 +145,16 @@ class Trainer:
 
             load_backbone_weights(detector, backbone_weights)
         self.optimizer = make_optimizer(detector.cfg, detector)
-        self.step_fn = make_train_step(detector, self.optimizer)
+        if self.parallel:
+            self.step_fn = make_parallel_train_step(detector, self.optimizer)
+        else:
+            self.step_fn = make_train_step(detector, self.optimizer)
         self.lr_schedule = self.optimizer.schedule
-        self.ckpt = CheckpointManager(train_dir)
-        restore = CheckpointManager(restore_ckpt_path) if restore_ckpt_path else self.ckpt
+        self.ckpt = CheckpointManager(train_dir, distributed=self.parallel)
+        restore = (CheckpointManager(restore_ckpt_path, distributed=self.parallel)
+                   if restore_ckpt_path else self.ckpt)
         restore.restore(detector, self.optimizer)
-        self.writer = MetricWriter(train_dir)
+        self.writer = MetricWriter(train_dir) if self.is_primary else None
         self.logging_every = logging_every_n_steps
         self.summary_every = summary_every_n_steps
         self.saving_every = saving_every_n_steps
@@ -137,19 +170,40 @@ class Trainer:
         return tuple(torch.as_tensor(np.asarray(batch[k])).to(dev, non_blocking=True)
                      for k in _BATCH_KEYS)
 
+    def _step(self, batch: dict, step: int) -> dict:
+        """One step on `batch`: under data parallelism the global batch, of
+        which this rank takes its rows (the step samples or slices the
+        global batch's draws)."""
+        draws = self.draws(step) if self.draws is not None else self.generator
+        if self.parallel:
+            lo, hi = local_batch_slice(len(batch["images"]), self.rank, self.world)
+            batch = {k: np.asarray(batch[k])[lo:hi] for k in _BATCH_KEYS}
+        return self.step_fn(self._to_device(batch), draws)
+
+    def _mean_over_ranks(self, metrics: dict) -> dict:
+        """The metrics averaged over the ranks: one all_reduce, which every
+        rank makes at the same steps."""
+        if not self.parallel:
+            return metrics
+        vals = torch.stack([v.float() for v in metrics.values()])
+        dist.all_reduce(vals)
+        return dict(zip(metrics, vals / self.world))
+
     def train_one_epoch(self, batches: Iterator[dict], steps: Optional[int] = None):
         t_start = time.time()
         n = 0
         for batch in batches:
             step = self.optimizer.count + 1
-            draws = self.draws(step) if self.draws is not None else self.generator
-            metrics = self.step_fn(self._to_device(batch), draws)
+            metrics = self._step(batch, step)
             n += 1
-            if step % self.logging_every == 0:
+            log, summary = step % self.logging_every == 0, step % self.summary_every == 0
+            if log or summary:
+                metrics = self._mean_over_ranks(metrics)
+            if log and self.is_primary:
                 vals = {k: float(v) for k, v in metrics.items()}
                 print(f"step {step} lr={self.lr_schedule(step):.2e} "
                       + " ".join(f"{k}={v:.4f}" for k, v in vals.items()), flush=True)
-            if step % self.summary_every == 0:
+            if summary and self.is_primary:
                 vals = {k: float(v) for k, v in metrics.items()}
                 vals["learning_rate"] = float(self.lr_schedule(step))
                 self.writer.write_scalars(step, vals)
@@ -160,7 +214,8 @@ class Trainer:
             if steps is not None and n >= steps:
                 break
         dt = time.time() - t_start
-        print(f"epoch finished: {n} steps in {dt:.1f}s ({n / max(dt, 1e-9):.2f} steps/s)")
+        if self.is_primary:
+            print(f"epoch finished: {n} steps in {dt:.1f}s ({n / max(dt, 1e-9):.2f} steps/s)")
 
     def _bgr_means(self):
         return self.det.cfg.get("bgr_pixel_means", (103.939, 116.779, 123.68))
@@ -211,7 +266,8 @@ class Trainer:
         batches = prefetch(batches)
         try:
             for epoch in range(epochs):
-                print(f"epoch {epoch + 1}/{epochs}")
+                if self.is_primary:
+                    print(f"epoch {epoch + 1}/{epochs}")
                 self.train_one_epoch(batches, steps_per_epoch)
                 self.ckpt.save(self.det, self.optimizer)
         finally:
@@ -219,5 +275,6 @@ class Trainer:
             self.close()
 
     def close(self):
-        self.writer.close()
+        if self.writer is not None:
+            self.writer.close()
         self.ckpt.close()
