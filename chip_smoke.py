@@ -210,7 +210,29 @@ toolkit (nvcc) and PyTorch built for CUDA. It imports nothing of JAX.
    shape) on the 8 requests: validity equal, boxes within 1e-4 px, scores
    within 1e-5; K1 once a shard and once an image, FPN's K4 once a shard;
    the current CUDA device unchanged.
-13. Prints a JSON line with the records of the five kernels and of the four
+13. Spatial partitioning (`parallel/spatial.py`). Two processes (this
+   script with `--sp-rank R SPEC`, started with a deadline, killed at it)
+   over gloo with CUDA tensors on cuda:0 (NCCL over cuda:0 and cuda:1 where
+   there are two GPUs) build a space group of both and shard each image's
+   rows over it. `frcnn_sp2_train` (C4 ResNet-50, 608x1008) and
+   `fpn_sp2_train` (FPN ResNet-50, 640x1024), stock Pascal config, float32
+   with TF32 off, B = 1: one step of each against one process at B = 1
+   from the same weights (frozen BatchNorms calibrated, the RPN score layer
+   x20, as phase 12) and draws: losses within rtol 1e-4 on each rank (or,
+   where the input x (1 + 1e-6) moves one process's loss by more, within
+   twice that move: a random full-width point whose proposals reorder at
+   the last bit; each gap and move prints), counts equal, the updates held
+   as phase 12's (GRAD_TOL of their norm and of each tensor's largest
+   value, or twice phase 7's conditioning move), the ranks' parameters
+   bit-equal, K1 (and FPN's K4 and K5) once on each rank; each rank's step
+   time, the bytes its halo exchanges and its gather move a step, and
+   those exchanges replayed alone. `frcnn_sp2_predict`: one request
+   through the spatial `predict` on each rank: the gathered stride-16 map
+   within SP_MAP_TOL of the unsharded extractor's largest value, and
+   against the detector's own `predict` validity and labels equal (phase
+   12's eval checks), boxes within 0.05 px and scores within JAX's spatial
+   tolerance (rtol 1e-4, atol 1e-5), K1 twice; times and exchanges.
+14. Prints a JSON line with the records of the five kernels and of the four
    RoIAlign kernels' bf16-plane variants (K1's with every shape of phase
    3 under `per_shape`), then as its last line
    `{"ok": true, "device": {...}}`. Any failure raises: exit code != 0.
@@ -221,14 +243,15 @@ The port trains on several GPUs with `torchrun --standalone
 tf_eager_object_detection_tpu_torch.scripts.train --multihost
 --coordinator_address HOST:PORT --num_processes P --process_id R ...` (or
 torchrun's environment) on several; `eval_pascal` / `eval_coco`
-`--data_parallel N` split each batch over the first N GPUs. Spatial
-partitioning is ROADMAP item 8(c), not ported.
+`--data_parallel N` split each batch over the first N GPUs; `train`,
+`eval_pascal` and `infer` under `torchrun --standalone --nproc_per_node=N`
+with `--spatial_partition N` shard each image's rows over the N GPUs.
 
 Every kernel check of phases 3-5 also calls the kernel through its
 `tf_eager_od` operator (`ops/kernels/library.py`): K1, K4 and K2 bit-equal
 to their wrappers, K5 and K3 as the operators' `register_autograd` backward
 within the wrappers' tolerance of the plain backward. The paths of phases
-6-12 reach every kernel through the operators.
+6-13 reach every kernel through the operators.
 """
 
 from __future__ import annotations
@@ -288,6 +311,13 @@ from tf_eager_object_detection_tpu_torch.ops.prediction import post_ops_predicti
 from tf_eager_object_detection_tpu_torch.ops.sampling import TrainDraws
 from tf_eager_object_detection_tpu_torch.parallel import multihost
 from tf_eager_object_detection_tpu_torch.parallel.mesh import make_parallel_train_step, replicate
+from tf_eager_object_detection_tpu_torch.parallel.spatial import (
+    RowShard,
+    make_spatial_groups,
+    make_spatial_predict,
+    make_spatial_train_step,
+    sharded_extractor,
+)
 from tf_eager_object_detection_tpu_torch.ref_import import (
     from_jax,
     importers,
@@ -3227,13 +3257,14 @@ def dp_rank(spec_path: str, rank: int) -> int:
     return 0
 
 
-def run_ranks(spec: dict, tmp: Path) -> list:
-    """DP_WORLD ranks of `dp_rank` at once; kills every rank left after
-    DP_TIMEOUT_S and raises with the ranks' output if any failed."""
+def run_ranks(spec: dict, tmp: Path, flag: str = "--dp-rank", what: str = "fpn_dp2_train") -> list:
+    """DP_WORLD ranks of this script with `flag` (`dp_rank`, `sp_rank`) at
+    once; kills every rank left after DP_TIMEOUT_S and raises with the
+    ranks' output if any failed."""
     spec_path = tmp / "spec.json"
     spec_path.write_text(json.dumps(spec))
     logs = [open(tmp / f"rank{r}.log", "w+") for r in range(DP_WORLD)]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r),
                                str(spec_path)], stdout=log, stderr=subprocess.STDOUT)
              for r, log in enumerate(logs)]
     deadline = time.monotonic() + DP_TIMEOUT_S
@@ -3253,10 +3284,43 @@ def run_ranks(spec: dict, tmp: Path) -> list:
         outputs.append(log.read())
         log.close()
     if any(p.returncode != 0 for p in procs):
-        raise AssertionError("fpn_dp2_train ranks failed: " + " ".join(
+        raise AssertionError(f"{what} ranks failed: " + " ".join(
             f"--- rank {r} (rc {p.returncode}) ---\n{out[-3000:]}"
             for r, (p, out) in enumerate(zip(procs, outputs))))
     return [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(DP_WORLD)]
+
+
+def hold_updates(name, against, before, after, got, moved_after) -> dict:
+    """Hold the updates of a parallel step (`got`, parameters after it)
+    against a reference step's (`after`) from the same `before`: each
+    trainable tensor's within GRAD_TOL of its largest value, or, where the
+    reference step with the input x (1 + INPUT_MOVE) (`moved_after`, phase
+    7's conditioning) moves it by more, within twice that move; all of them
+    within GRAD_TOL of their norm, or twice the move of the norm."""
+    trainable = [n for n in after if not torch.equal(after[n], before[n])]
+    worst, move_worst, by_move = (0.0, ""), (0.0, ""), 0
+    sq = {"gap": 0.0, "move": 0.0, "update": 0.0}
+    for n in trainable:
+        upd = after[n] - before[n]
+        scale = max(float(upd.abs().max()), 1e-30)
+        diff, moved = got[n] - before[n] - upd, moved_after[n] - after[n]
+        gap = float(diff.abs().max()) / scale
+        move = float(moved.abs().max()) / scale
+        bound = GRAD_TOL if move <= GRAD_TOL else 2.0 * move
+        by_move += move > GRAD_TOL
+        require(gap <= bound, f"{name}: update of {n} differs by {gap:.3g} of its largest "
+                f"value from {against} (bound {bound:.3g}; the input x (1 + "
+                f"{INPUT_MOVE:g}) moves it by {move:.3g})")
+        worst, move_worst = max(worst, (gap, n)), max(move_worst, (move, n))
+        for key, t in (("gap", diff), ("move", moved), ("update", upd)):
+            sq[key] += float(t.double().square().sum())
+    gap_all, move_all = ((sq[k] / sq["update"]) ** 0.5 for k in ("gap", "move"))
+    bound_all = GRAD_TOL if move_all <= GRAD_TOL else 2.0 * move_all
+    require(gap_all <= bound_all, f"{name}: the updates differ by {gap_all:.3g} of their "
+            f"norm from {against} (bound {bound_all:.3g}; the input moves them by "
+            f"{move_all:.3g})")
+    return {"trainable": trainable, "gap_all": gap_all, "worst": worst, "by_move": by_move,
+            "move_all": move_all, "move_worst": move_worst}
 
 
 def fpn_dp2_train(card) -> dict:
@@ -3322,28 +3386,9 @@ def fpn_dp2_train(card) -> dict:
         got = sum(r["metrics"][k] for r in reports) / DP_WORLD
         tol = 1e-4 * abs(v) if k.endswith("loss") else 0.0
         require(abs(got - v) <= tol, f"fpn_dp2_train {k}: ranks' mean {got} vs B=2 {v}")
-    trainable = [n for n in after if not torch.equal(after[n], before[n])]
-    worst, move_worst, by_move = (0.0, ""), (0.0, ""), 0
-    sq = {"gap": 0.0, "move": 0.0, "update": 0.0}
-    for n in trainable:
-        upd = after[n] - before[n]
-        scale = max(float(upd.abs().max()), 1e-30)
-        diff, moved = ranks[0][n] - before[n] - upd, moved_after[n] - after[n]
-        gap = float(diff.abs().max()) / scale
-        move = float(moved.abs().max()) / scale
-        bound = GRAD_TOL if move <= GRAD_TOL else 2.0 * move
-        by_move += move > GRAD_TOL
-        require(gap <= bound, f"fpn_dp2_train: update of {n} differs by {gap:.3g} of its largest "
-                f"value from the B=2 step's (bound {bound:.3g}; the input x (1 + "
-                f"{INPUT_MOVE:g}) moves it by {move:.3g})")
-        worst, move_worst = max(worst, (gap, n)), max(move_worst, (move, n))
-        for key, t in (("gap", diff), ("move", moved), ("update", upd)):
-            sq[key] += float(t.double().square().sum())
-    gap_all, move_all = ((sq[k] / sq["update"]) ** 0.5 for k in ("gap", "move"))
-    bound_all = GRAD_TOL if move_all <= GRAD_TOL else 2.0 * move_all
-    require(gap_all <= bound_all, f"fpn_dp2_train: the updates differ by {gap_all:.3g} of their "
-            f"norm from the B=2 step's (bound {bound_all:.3g}; the input moves them by "
-            f"{move_all:.3g})")
+    held = hold_updates("fpn_dp2_train", "the B=2 step's", before, after, ranks[0], moved_after)
+    trainable, gap_all, worst, by_move, move_all, move_worst = (
+        held[k] for k in ("trainable", "gap_all", "worst", "by_move", "move_all", "move_worst"))
     per_step = PER_STEP["fpn"]
     for r in reports:
         expected = {k: per_step.get(k, 0) for k in KERNELS}
@@ -3470,6 +3515,316 @@ def drive_data_parallel(requests, card) -> dict:
         paths.update(eval_dp2(model_type, requests, card))
     return paths
 
+# ----------------------------------------------------- spatial partitioning
+SP_TIMED_STEPS = 3
+SP_EXCHANGE_REPLAYS = 3
+# the gathered stride-16 map against the unsharded extractor's, relative to
+# its largest value: cuDNN picks its algorithms by shape, and a shard's rows
+# are another shape than the whole map's (measured 2.06e-5)
+SP_MAP_TOL = 1e-4
+# spatial predict against the detector's own, (rtol, atol): scores as JAX's
+# tests/test_spatial.py; boxes within 0.05 px, not JAX's 1e-3: the gathered
+# map's 2e-5 (cuDNN's algorithms by shape) moves a box by up to 0.016 px
+# (measured), and phase 12's replicas hold 1e-4 px only on equal shapes
+SP_BOX_TOL, SP_SCORE_TOL = (1e-4, 0.05), (1e-4, 1e-5)
+
+
+def exchange_ms(traffic, groups, device) -> float:
+    """The collectives of a step's `traffic` ((kind, collective, output
+    bytes) in order) replayed alone on float32 buffers of their sizes over
+    the space group: the median ms of SP_EXCHANGE_REPLAYS replays."""
+    calls = []
+    for _, collective, nbytes in traffic:
+        if collective == "all_gather":
+            part = torch.zeros(nbytes // 4 // groups.sp, device=device)
+            calls.append((part, [torch.empty_like(part) for _ in range(groups.sp)]))
+        else:
+            calls.append((torch.zeros(nbytes // 4, device=device), None))
+    times = []
+    for _ in range(SP_EXCHANGE_REPLAYS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for x, parts in calls:
+            if parts is None:
+                torch.distributed.all_reduce(x, group=groups.space)
+            else:
+                torch.distributed.all_gather(parts, x, group=groups.space)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def traffic_bytes(traffic) -> dict:
+    return {kind: sum(n for k, _, n in traffic if k == kind) for kind in ("halo", "gather")}
+
+
+def sp_train_case(case, groups, device, out: Path, rank: int) -> dict:
+    """One spatial step on the global batch of the case (CPU tensors: the
+    step moves only this rank's rows to the card) with its draws, launches
+    counted and the exchanges recorded; writes the parameters after it;
+    then SP_TIMED_STEPS more steps timed, and the exchanges replayed."""
+    cfg = dict(config_factory("pascal", case["model_type"]))
+    det = model_factory(case["model_type"], "resnet50", cfg, device=device, seed=0)
+    det.load_state_dict(torch.load(case["state"], weights_only=True))
+    step = make_spatial_train_step(det, make_optimizer(cfg, det), groups)
+    inputs = torch.load(case["inputs"], weights_only=True)
+    batch = tuple(inputs["batch"])
+    draws = TrainDraws(*inputs["draws"]).to(device)
+    reset_launches()
+    groups.traffic = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    metrics = step(batch, draws)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t) * 1e3
+    launches = launch_counts()
+    traffic, groups.traffic = groups.traffic, None
+    torch.save(params_on_host(det), out / f"{case['name']}_params{rank}.pt")
+    times = []
+    for _ in range(SP_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(batch, draws)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return {"launches": launches, "metrics": {k: float(v) for k, v in metrics.items()},
+            "first_ms": first_ms, "step_ms": float(np.median(times)),
+            "bytes": traffic_bytes(traffic), "exchanges": len(traffic),
+            "exchange_ms": exchange_ms(traffic, groups, device)}
+
+
+def sp_predict_case(case, groups, device, out: Path, rank: int) -> dict:
+    """One request through the spatial `predict` (launches counted) against
+    the detector's own `predict` on this rank, and the gathered stride-16
+    map against the unsharded extractor's."""
+    cfg = dict(config_factory("pascal", "faster_rcnn"))
+    det = model_factory("faster_rcnn", "resnet50", cfg, device=device, seed=0)
+    det.load_state_dict(torch.load(case["state"], weights_only=True))
+    inputs = torch.load(case["inputs"], weights_only=True)
+    image, hw = inputs["image"].numpy(), inputs["image_hw"].numpy()
+    predict = make_spatial_predict(det, groups)
+    height = image.shape[0]
+    shard = RowShard(groups, height, det.extractor_levels)
+    lo, hi = shard.owned(height)
+    with torch.inference_mode():
+        with sharded_extractor(det, shard):
+            gathered = det._extract(torch.as_tensor(image[lo:hi][None], device=device))
+        whole = det.extractor(torch.as_tensor(image[None], device=device))
+    map_err = float((gathered - whole).abs().max()) / float(whole.abs().max())
+    predict(image, hw)  # warm-up
+    reset_launches()
+    groups.traffic = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = predict(image, hw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = launch_counts()
+    traffic, groups.traffic = groups.traffic, None
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = det.predict(image, hw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    v = want.valid
+    return {"launches": launches, "map_err": map_err, "ms": ms, "plain_ms": plain_ms,
+            "valid_equal": bool(torch.equal(got.valid, v)), "n": int(v.sum()),
+            "labels_equal": bool(torch.equal(got.labels[v], want.labels[v])),
+            "box_err": float((got.boxes[v] - want.boxes[v]).abs().max()) if v.any() else 0.0,
+            "score_err": float((got.scores[v] - want.scores[v]).abs().max()) if v.any() else 0.0,
+            "box_ok": bool(torch.allclose(got.boxes[v], want.boxes[v], *SP_BOX_TOL)),
+            "score_ok": bool(torch.allclose(got.scores[v], want.scores[v], *SP_SCORE_TOL)),
+            "bytes": traffic_bytes(traffic), "exchanges": len(traffic),
+            "exchange_ms": exchange_ms(traffic, groups, device)}
+
+
+SP_CASES = {"train": sp_train_case, "predict": sp_predict_case}
+
+
+def sp_rank(spec_path: str, rank: int) -> int:
+    """One rank of phase 13 (run as `chip_smoke.py --sp-rank R SPEC`): joins
+    the group of the spec, builds its space group of DP_WORLD ranks and
+    runs the spec's cases in order; writes its report."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = multihost.local_device(spec["devices"][rank])
+    multihost.initialize(init_method=spec["init_method"], num_processes=DP_WORLD,
+                         process_id=rank, backend=spec["backend"], device=device,
+                         timeout_s=DP_TIMEOUT_S)
+    try:
+        groups = make_spatial_groups(DP_WORLD, timeout_s=DP_TIMEOUT_S)
+        report = {"rank": rank, "device": str(device)}
+        for case in spec["cases"]:
+            report[case["name"]] = SP_CASES[case["kind"]](case, groups, device,
+                                                          Path(spec["out"]), rank)
+        with open(Path(spec["out"]) / f"rank{rank}.json", "w") as f:
+            json.dump(report, f)
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def sp_train_inputs(model_type, tmp: Path, name: str):
+    """The state (frozen BatchNorms calibrated to the batch, the RPN score
+    layer x20, as phase 12), one landscape training image and its draws of
+    a spatial training case, written for the ranks -> (case, reference)."""
+    cfg = dict(config_factory("pascal", model_type))
+    batch = train_batch([make_train_items()[DP_ITEMS[0]]], cfg, np.random.RandomState(0))
+    det = model_factory(model_type, "resnet50", cfg, device="cuda", seed=0)
+    calibrate_frozen_bn(det, lambda: det.extractor(batch[0]))
+    with torch.no_grad():  # random-weight proposals separate, as in phase 7's checks
+        det.rpn_head.rpn_score_conv.weight.mul_(20.0)
+    state = {k: v.cpu() for k, v in det.state_dict().items()}
+    draws = det.sample_draws(torch.Generator(device="cuda").manual_seed(7), 1,
+                             batch[0].shape[1:3])
+    before = params_on_host(det)
+    del det
+    torch.save(state, tmp / f"{name}_state.pt")
+    torch.save({"batch": tuple(t.cpu() for t in batch),
+                "draws": tuple(None if t is None else t.cpu() for t in draws)},
+               tmp / f"{name}_inputs.pt")
+    case = {"name": name, "kind": "train", "model_type": model_type,
+            "state": str(tmp / f"{name}_state.pt"), "inputs": str(tmp / f"{name}_inputs.pt")}
+    return case, (model_type, cfg, state, batch, draws, before)
+
+
+def sp_predict_inputs(requests, tmp: Path):
+    """C4 with its frozen BatchNorms set to the statistics of a batch of the
+    requests and its RPN and RoI score layers scaled as phase 6's CPU checks
+    scale them (random-weight proposals and class scores separate, as in
+    phase 12's eval checks), and the first landscape request, padded."""
+    cfg = dict(config_factory("pascal", "faster_rcnn"))
+    det = model_factory("faster_rcnn", "resnet50", cfg, device="cuda", seed=0)
+    items = [preprocess_eval_image(img, cfg) for img in requests]
+    landscape = [it for it in items if it[0].shape[0] < it[0].shape[1]][:BATCH]
+    calibrate_frozen_bn(det, lambda: det.im_detect_batch(
+        *(np.stack([it[k] for it in landscape]) for k in range(3))))
+    rpn_scale, roi_scale = CPU_CHECKS["faster_rcnn"][3:]
+    with torch.no_grad():
+        det.rpn_head.rpn_score_conv.weight.mul_(rpn_scale)
+        det.roi_head.roi_head_score.weight.mul_(roi_scale)
+    torch.save({k: v.cpu() for k, v in det.state_dict().items()}, tmp / "predict_state.pt")
+    torch.save({"image": torch.as_tensor(landscape[0][0]),
+                "image_hw": torch.as_tensor(np.asarray(landscape[0][1]))},
+               tmp / "predict_inputs.pt")
+    del det
+    return {"name": "frcnn_sp2_predict", "kind": "predict",
+            "state": str(tmp / "predict_state.pt"), "inputs": str(tmp / "predict_inputs.pt")}
+
+
+def drive_spatial(requests, card) -> dict:
+    """Phase 13: `frcnn_sp2_train`, `fpn_sp2_train` and `frcnn_sp2_predict`
+    on two processes of this script (`--sp-rank R SPEC`, started with a
+    deadline, killed at it), each image's rows sharded over them, against
+    one process on the same weights and draws."""
+    two = torch.cuda.device_count() >= 2
+    backend = "nccl" if two else "gloo"
+    devices = ["cuda:0", "cuda:1"] if two else ["cuda:0", "cuda:0"]
+    refs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cases = []
+        for model_type in ("faster_rcnn", "fpn"):
+            name = f"{PATH_NAME[model_type]}_sp2_train"
+            case, refs[name] = sp_train_inputs(model_type, tmp, name)
+            cases.append(case)
+        cases.append(sp_predict_inputs(requests, tmp))
+        torch.cuda.empty_cache()
+        spec = {"backend": backend, "devices": devices, "init_method": f"file://{tmp / 'store'}",
+                "out": str(tmp), "cases": cases}
+        print(f"spatial partitioning: {DP_WORLD} ranks over {backend} on {devices}, each "
+              f"image's rows sharded over them (torch.cuda.device_count() = "
+              f"{torch.cuda.device_count()})")
+        reports = run_ranks(spec, tmp, "--sp-rank", "spatial")
+        rank_params = {name: [torch.load(tmp / f"{name}_params{r}.pt", weights_only=True)
+                              for r in range(DP_WORLD)] for name in refs}
+    paths = {}
+    for name, (model_type, cfg, state, batch, draws, before) in refs.items():
+        def single(images):
+            det = model_factory(model_type, "resnet50", cfg, device="cuda", seed=0)
+            det.load_state_dict(state)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = make_train_step(det, make_optimizer(cfg, det))((images, *batch[1:]), draws)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            after = params_on_host(det)
+            del det
+            torch.cuda.empty_cache()
+            return {k: float(v) for k, v in metrics.items()}, after, ms
+
+        want, after, _ = single(batch[0])
+        moved, moved_after, single_ms = single(batch[0] * (1.0 + INPUT_MOVE))
+        ranks = rank_params[name]
+        require(all(torch.equal(ranks[0][n], ranks[1][n]) for n in ranks[0]),
+                f"{name}: the ranks' parameters differ")
+        loss_gaps = {}
+        for r in reports:
+            got = r[name]["metrics"]
+            for k, v in want.items():
+                if not k.endswith("loss"):
+                    require(got[k] == v, f"{name} rank {r['rank']} {k}: {got[k]} vs {v}")
+                    continue
+                gap, move = abs(got[k] - v) / abs(v), abs(moved[k] - v) / abs(v)
+                bound = 1e-4 if move <= 1e-4 else 2.0 * move
+                require(gap <= bound, f"{name} rank {r['rank']} {k}: {got[k]} vs one process "
+                        f"{v} (relative gap {gap:.3g}, bound {bound:.3g}; the input x (1 + "
+                        f"{INPUT_MOVE:g}) moves it by {move:.3g})")
+                loss_gaps[k] = max(loss_gaps.get(k, (0.0, 0.0)), (gap, move))
+        held = hold_updates(name, "one process's", before, after, ranks[0], moved_after)
+        expected = {k: PER_STEP[model_type].get(k, 0) for k in KERNELS}
+        for r in reports:
+            require(r[name]["launches"] == expected,
+                    f"{name} rank {r['rank']} launches {r[name]['launches']} != {expected}")
+            paths[f"{name}_rank{r['rank']}"] = r[name]["launches"]
+        print(f"{name}: {DP_WORLD} ranks, B=1 at full width, each image's rows sharded: losses "
+              f"against one process, relative gap (the input move's): " + ", ".join(
+                  f"{k} {g:.3g} ({m:.3g})" for k, (g, m) in loss_gaps.items())
+              + f" (rtol 1e-4, or twice the move above it); counts equal; all "
+              f"{len(held['trainable'])} updates "
+              f"within {held['gap_all']:.3g} of their norm, each within {held['worst'][0]:.3g} of "
+              f"its largest value ({held['worst'][1]}; tolerance {GRAD_TOL}, {held['by_move']} "
+              f"tensors bounded by twice their move instead); the input x (1 + {INPUT_MOVE:g}) "
+              f"moves one process's updates by {held['move_all']:.3g} of their norm, each by up "
+              f"to {held['move_worst'][0]:.3g} ({held['move_worst'][1]}); ranks' parameters "
+              f"bit-equal  ({card})")
+        for r in reports:
+            c = r[name]
+            print(f"{name} rank {r['rank']} on {r['device']}: launches {c['launches']}; first "
+                  f"step {c['first_ms']:.2f} ms, then median {c['step_ms']:.2f} ms a step; "
+                  f"{c['exchanges']} exchanges a step move {c['bytes']['halo'] / 2**20:.2f} MiB "
+                  f"of halos and {c['bytes']['gather'] / 2**20:.2f} MiB of gathered maps "
+                  f"(collective outputs on this rank, forward and backward) in "
+                  f"{c['exchange_ms']:.2f} ms replayed alone; one process: {single_ms:.2f} ms "
+                  f"(its second step on a fresh detector)  ({card})")
+    name = "frcnn_sp2_predict"
+    for r in reports:
+        c = r[name]
+        require(c["map_err"] <= SP_MAP_TOL, f"{name} rank {r['rank']}: the gathered map differs "
+                f"by {c['map_err']:.3g} of its largest value from the unsharded extractor's")
+        require(c["valid_equal"] and c["labels_equal"] and c["n"] > 0,
+                f"{name} rank {r['rank']}: validity or labels differ from predict ({c['n']} "
+                "detections)")
+        require(c["box_ok"] and c["score_ok"], f"{name} rank {r['rank']}: box err "
+                f"{c['box_err']} px, score err {c['score_err']} against predict")
+        expected = dict.fromkeys(KERNELS, 0)
+        expected["nms_alive_sorted"] = 2
+        require(c["launches"] == expected,
+                f"{name} rank {r['rank']} launches {c['launches']} != {expected}")
+        paths[f"{name}_rank{r['rank']}"] = c["launches"]
+        print(f"{name} rank {r['rank']}: one request, the gathered stride-16 map within "
+              f"{c['map_err']:.3g} of the unsharded extractor's largest value (tolerance "
+              f"{SP_MAP_TOL:g}); {c['n']} detections, validity and labels equal to predict's, "
+              f"max box diff {c['box_err']:.3g} px, max score diff {c['score_err']:.3g} (rtol, "
+              f"atol {SP_BOX_TOL} px, {SP_SCORE_TOL}); launches "
+              f"{c['launches']}; {c['ms']:.2f} ms against predict's {c['plain_ms']:.2f} ms; "
+              f"{c['exchanges']} exchanges move {c['bytes']['halo'] / 2**20:.2f} MiB of halos and "
+              f"{c['bytes']['gather'] / 2**20:.2f} MiB of gathered map in {c['exchange_ms']:.2f} "
+              f"ms replayed alone  ({card})")
+    return paths
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3543,6 +3898,8 @@ def main() -> int:
     print(f"export phase done at {time.perf_counter() - t_start:.1f} s")
     paths.update(drive_data_parallel(requests, card))
     print(f"data-parallel phase done at {time.perf_counter() - t_start:.1f} s")
+    paths.update(drive_spatial(requests, card))
+    print(f"spatial phase done at {time.perf_counter() - t_start:.1f} s")
 
     per_level_shape = "B=1 N=256 S=14 C=256, one launch per level P2..P5"
     fused_shape = "B=1 N=256 S=14 C=256, P2..P5 of 640x1024"
@@ -3601,4 +3958,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank(sys.argv[3], int(sys.argv[2])))
+    if sys.argv[1:2] == ["--sp-rank"]:
+        sys.exit(sp_rank(sys.argv[3], int(sys.argv[2])))
     sys.exit(main())

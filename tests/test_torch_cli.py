@@ -6,9 +6,9 @@
   `generate` for the same seed: annotations and image sets byte-identical,
   JPEG pixels equal after decoding (and `draw_image` equal before any
   encoding).
-- Every command line runs as `python -m ... --help`; `train` refuses the
-  option that is not ported, `--spatial_partition` > 1, naming its ROADMAP
-  item.
+- Every command line runs as `python -m ... --help`; `train` refuses COCO
+  FPN, as JAX does, and `--spatial_partition` > 1 without a process group
+  (naming torchrun) or with `--multihost`.
 - A tiny rehearsal on the CPU through `voc_rehearsal run` (generate ->
   TFRecords -> `train` -> `eval_pascal`) prints 20 `AP =` lines; the eval
   command line gives the same APs from the local result files and from
@@ -147,19 +147,29 @@ def test_train_refuses_what_is_not_ported(flags, item):
 
 
 @pytest.mark.parametrize("flag", ["--data_parallel", "--multihost", "--backbone_weights=x"])
-def test_train_has_no_option_of_later_items(flag):
-    """Item 8(a)-(b)'s data-parallel flags are ported (tests/
-    test_torch_parallel_trainer.py trains with them), and so is
-    `--backbone_weights` (item 9(a), loaded in tests/test_torch_ref_import.py);
-    each is passed on. The later item 8(c), `--spatial_partition` > 1,
-    refuses before anything is joined or built."""
-    args = train_cli.parse_args([flag])
+def test_train_has_no_option_of_later_items(flag, monkeypatch):
+    """Items 8(a)-(c) are ported: the data-parallel flags (tests/
+    test_torch_parallel_trainer.py trains with them), `--backbone_weights`
+    (item 9(a), loaded in tests/test_torch_ref_import.py) and
+    `--spatial_partition` (item 8(c), tests/test_torch_spatial.py) parse and
+    are passed on. `--spatial_partition 2` with each flag refuses before
+    anything is joined or built: without torchrun's environment (naming
+    torchrun), and with `--multihost`, which JAX refuses too."""
+    for key in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
+    args = train_cli.parse_args([flag, "--spatial_partition", "2"])
+    assert args.spatial_partition == 2
     if flag.startswith("--backbone_weights"):
         assert args.backbone_weights == "x"
     else:
-        assert getattr(args, flag[2:]) is True and args.spatial_partition == 1
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 8\(c\)"):
-        train_cli.main([flag, "--spatial_partition", "2", "--device", "cpu"])
+        assert getattr(args, flag[2:]) is True
+    argv = [flag, "--spatial_partition", "2", "--device", "cpu"]
+    if flag == "--multihost":
+        with pytest.raises(SystemExit, match="--spatial_partition with --multihost"):
+            train_cli.main(argv)
+    else:
+        with pytest.raises(RuntimeError, match="torchrun"):
+            train_cli.main(argv)
 
 
 @pytest.fixture(scope="module")

@@ -216,16 +216,17 @@ def test_trainer_checkpoints_and_clis_import_without_jax():
 
 
 def test_parallel_modules_import_without_jax():
-    """`parallel/` loads no JAX, and neither does the data-parallel tests'
-    worker (its children must start without it); a group of one joins
-    without torchrun's environment, and the trainer steps over it."""
+    """`parallel/` (`spatial.py` included) loads no JAX, and neither does the
+    data-parallel tests' worker (its children must start without it); a
+    group of one joins without torchrun's environment, and the data-parallel
+    and spatial (sp = 1) steps take a step over it."""
     proc = _run(
         """
         import sys
         sys.path.insert(0, "tests")
         import numpy as np
         import torch
-        from tf_eager_object_detection_tpu_torch.parallel import mesh, multihost
+        from tf_eager_object_detection_tpu_torch.parallel import mesh, multihost, spatial
         import torch_ddp_worker
         from tf_eager_object_detection_tpu_torch.config.config_factory import config_factory
         from tf_eager_object_detection_tpu_torch.models.model_factory import model_factory
@@ -242,6 +243,11 @@ def test_parallel_modules_import_without_jax():
         batch = (np.zeros((1, 64, 64, 3), np.float32), np.array([[64, 64]]),
                  np.array([[[8.0, 8.0, 40.0, 40.0], [0, 0, 0, 0]]], np.float32),
                  np.array([[True, False]]), np.array([[3, 0]]))
+        metrics = step(batch, torch.Generator().manual_seed(0))
+        assert all(bool(torch.isfinite(v)) for v in metrics.values())
+        det = model_factory("faster_rcnn", "resnet50", cfg, device="cpu")
+        groups = spatial.make_spatial_groups(1, timeout_s=60)
+        step = spatial.make_spatial_train_step(det, make_optimizer(cfg, det), groups)
         metrics = step(batch, torch.Generator().manual_seed(0))
         assert all(bool(torch.isfinite(v)) for v in metrics.values())
         multihost.shutdown()

@@ -28,7 +28,9 @@ process between choosing and binding is retried once with another).
 - `get_prediction_files(..., data_parallel=2)` writes VOC detection files
   byte-identical to `data_parallel=0` (8 test images, batch 4);
 - every `--spatial_partition` > 1 (train, eval_pascal, infer, `Trainer`)
-  refuses, naming ROADMAP item 8(c).
+  refuses without a process group, saying how to launch (torchrun), and
+  with a world size that it does not divide, before joining or building
+  anything (tests/test_torch_spatial.py runs them under one).
 """
 
 import contextlib
@@ -306,8 +308,14 @@ def test_prediction_files_data_parallel_byte_identical(tree, tmp_path):
 
 
 @pytest.mark.parametrize("entry", ["train", "eval_pascal", "infer", "Trainer"])
-def test_spatial_partition_refuses_naming_item_8c(entry, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 8\(c\)"):
+def test_spatial_partition_refuses_naming_item_8c(entry, tmp_path, monkeypatch):
+    """Spatial partitioning (ROADMAP item 8(c)) is ported: each entry point
+    refuses N = 2 without a process group, naming torchrun, and with a
+    world size of 3, which 2 does not divide, before any collective."""
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+
+    def call():
         if entry == "train":
             train_cli.main(["--spatial_partition", "2", "--device", "cpu"])
         elif entry == "eval_pascal":
@@ -317,3 +325,20 @@ def test_spatial_partition_refuses_naming_item_8c(entry, tmp_path):
             infer_cli.main(["x.npz", "x.jpg", "--spatial_partition", "2", "--device", "cpu"])
         else:
             Trainer(None, str(tmp_path), spatial_partition=2)
+
+    with pytest.raises(RuntimeError, match="torchrun"):
+        call()
+    if entry == "Trainer":  # a group of one process
+        from tf_eager_object_detection_tpu_torch.parallel import multihost
+
+        multihost.initialize(device="cpu", timeout_s=60)
+        try:
+            with pytest.raises(ValueError, match="does not divide the world size 1"):
+                call()
+        finally:
+            multihost.shutdown()
+    else:
+        monkeypatch.setenv("RANK", "0")
+        monkeypatch.setenv("WORLD_SIZE", "3")
+        with pytest.raises(ValueError, match="does not divide the world size 3"):
+            call()

@@ -19,10 +19,26 @@ and writes what it computed to `<out>/rank<R>.npz`. Modes:
   the trained parameters' digests.
 - `indivisible`: a `Trainer(data_parallel=True)` step on a global batch of
   3 images, which must raise ValueError on every rank.
+- `spatial`: the cases of the spec in order over one dp x sp layout
+  (`make_spatial_groups(sp)`): `step` cases take one
+  `make_spatial_train_step` step on the global batch of `inputs` with its
+  draws, and save the metrics, the parameters' digests, the rows that
+  the hooked extractor layers saw and the exchanges' bytes; the case's
+  `reference_rank` then takes the port's single-process step at the
+  global batch from the same weights and draws, on its one thread, and
+  saves its metrics and the largest difference of each updated parameter
+  from the spatial step's, relative to the tensor's largest value; with
+  `save_params`, rank 0 saves the updated parameters. `predict` cases run
+  `make_spatial_predict` on each image of `inputs`, and the reference rank
+  the detector's own `predict`. `trainer` cases train a
+  `Trainer(spatial_partition=sp)` for the global batches of `inputs`, then
+  feed it a batch of one image, which must raise ValueError.
 
 `run_processes(cmds, ...)` starts commands with their output in files,
 waits for all of them up to a deadline, kills every one that is left,
-and raises with their output if any failed or timed out.
+and raises with their output if any failed or timed out
+(`start_processes` and `wait_processes` split it, so that the parent can
+work while the children run).
 """
 
 from __future__ import annotations
@@ -49,18 +65,32 @@ def child_env() -> dict:
     return env
 
 
-def run_processes(cmds, log_dir, timeout_s: float, expect_ok=True):
-    """Run `cmds` at once -> [(returncode, output)]; kills all of them at
-    the deadline and raises with their output. With `expect_ok`, a non-zero
-    exit raises too."""
+def start_processes(cmds, log_dir, timeout_s: float, envs=None):
+    """Start `cmds` at once (their output in files of `log_dir`) -> the
+    handle `wait_processes` takes; their deadline is `timeout_s` from now.
+    `envs[i]` is added to command i's environment."""
     os.makedirs(log_dir, exist_ok=True)
     procs, logs = [], []
     for i, cmd in enumerate(cmds):
         log = open(os.path.join(log_dir, f"proc{i}.log"), "w+")
         logs.append(log)
+        env = dict(child_env(), **(envs[i] if envs else {}))
         procs.append(subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, cwd=REPO,
-                                      env=child_env()))
-    deadline = time.monotonic() + timeout_s
+                                      env=env))
+    return procs, logs, time.monotonic() + timeout_s
+
+
+def run_processes(cmds, log_dir, timeout_s: float, expect_ok=True):
+    """Run `cmds` at once -> [(returncode, output)]; kills all of them at
+    the deadline and raises with their output. With `expect_ok`, a non-zero
+    exit raises too."""
+    return wait_processes(start_processes(cmds, log_dir, timeout_s), expect_ok)
+
+
+def wait_processes(started, expect_ok=True):
+    """Wait for the processes of `start_processes` up to their deadline ->
+    [(returncode, output)], as `run_processes`."""
+    procs, logs, deadline = started
     timed_out = False
     try:
         for p in procs:
@@ -91,6 +121,11 @@ def run_processes(cmds, log_dir, timeout_s: float, expect_ok=True):
 def run_ranks(spec: dict, tmp_dir, world: int = 2, timeout_s: float = 300.0, expect_ok=True):
     """`world` children of this module on `spec` (written to `tmp_dir`),
     over a file store in `tmp_dir` -> their (returncode, output)."""
+    return wait_processes(start_ranks(spec, tmp_dir, world, timeout_s), expect_ok)
+
+
+def start_ranks(spec: dict, tmp_dir, world: int = 2, timeout_s: float = 300.0):
+    """`run_ranks` without the wait: -> the handle of `wait_processes`."""
     tmp_dir = str(tmp_dir)
     spec = dict(spec, world=world, init_method=f"file://{os.path.join(tmp_dir, 'store')}",
                 out=spec.get("out", tmp_dir))
@@ -98,14 +133,18 @@ def run_ranks(spec: dict, tmp_dir, world: int = 2, timeout_s: float = 300.0, exp
     with open(path, "w") as f:
         json.dump(spec, f)
     cmds = [[sys.executable, WORKER, path, str(r)] for r in range(world)]
-    return run_processes(cmds, os.path.join(tmp_dir, "logs"), timeout_s, expect_ok)
+    return start_processes(cmds, os.path.join(tmp_dir, "logs"), timeout_s)
 
 
 def build_detector(spec: dict, device="cpu"):
     """The detector of a spec: `model_factory` at the spec's seed, the JAX
-    `.npz` of `weights` loaded where given, then the RPN score layer scaled
+    `.npz` of `weights` loaded where given, or with `random_biases` (a
+    seed) random biases and frozen-BatchNorm statistics as
+    `torch_shared.numpy_params` draws them, then the RPN score layer scaled
     by `rpn_score_scale` (so that random-weight proposals separate)."""
     import torch
+
+    from tf_eager_object_detection_tpu_torch.models.layers import FrozenBatchNorm
 
     from tf_eager_object_detection_tpu_torch.models.model_factory import model_factory
     from tf_eager_object_detection_tpu_torch.training.checkpoints import load_params
@@ -114,6 +153,20 @@ def build_detector(spec: dict, device="cpu"):
                         seed=spec.get("seed", 0))
     if spec.get("weights"):
         load_params(spec["weights"], det)
+    if spec.get("random_biases") is not None:
+        gen = torch.Generator().manual_seed(spec["random_biases"])
+        with torch.no_grad():
+            for name, mod in det.named_modules():
+                if isinstance(mod, FrozenBatchNorm):
+                    gain = 0.2 if name.endswith("_3_bn") else 1.0  # keeps the residual stream
+                    for buf, draw in (("gamma", lambda t: (0.8 + 0.4 * t.uniform_(generator=gen))
+                                       * gain), ("beta", lambda t: 0.1 * t.normal_(generator=gen)),
+                                      ("moving_mean", lambda t: 0.1 * t.normal_(generator=gen)),
+                                      ("moving_variance",
+                                       lambda t: 0.5 + t.uniform_(generator=gen))):
+                        getattr(mod, buf).copy_(draw(torch.empty_like(getattr(mod, buf))))
+                elif getattr(mod, "bias", None) is not None and isinstance(mod.bias, torch.Tensor):
+                    mod.bias.copy_(0.1 * torch.randn(mod.bias.shape, generator=gen))
     scale = spec.get("rpn_score_scale", 1.0)
     if scale != 1.0:
         with torch.no_grad():
@@ -220,7 +273,141 @@ def _indivisible(spec, rank, world):
     trainer.train_one_epoch(iter([{k: np.asarray(v)[:3] for k, v in zip(BATCH_KEYS, batch)}]), 1)
 
 
-MODES = {"step": _step, "trainer": _train_and_restore, "indivisible": _indivisible}
+def _hook_rows(det, names):
+    """Forward pre-hooks recording the rows of each named layer's input."""
+    seen = {}
+    modules = dict(det.named_modules())
+    for name in names:
+        modules[name].register_forward_pre_hook(
+            lambda mod, args, name=name: seen.setdefault(name, []).append(int(args[0].shape[-2])))
+    return seen
+
+
+def _spatial_step(case, groups, rank):
+    from tf_eager_object_detection_tpu_torch.parallel.spatial import make_spatial_train_step
+    from tf_eager_object_detection_tpu_torch.training.optimizer import make_optimizer
+
+    batch, draws = load_inputs(case["inputs"])
+    det = build_detector(case)
+    opt = make_optimizer(det.cfg, det)
+    step = make_spatial_train_step(det, opt, groups)
+    seen = _hook_rows(det, case.get("hooks", ()))
+    groups.traffic = []
+    t0 = time.perf_counter()
+    metrics = step(batch, draws)
+    out = {"seconds": time.perf_counter() - t0}
+    traffic, groups.traffic = groups.traffic, None
+    for kind in ("halo", "gather"):
+        out[f"bytes/{kind}"] = sum(n for k, _, n in traffic if k == kind)
+    out.update({"metric/" + k: float(v) for k, v in metrics.items()})
+    out.update({"seen/" + k: v for k, v in seen.items()})
+    params = {n: p.detach().clone() for n, p in det.named_parameters()}
+    out.update({"digest/" + n: digest(p) for n, p in params.items()})
+    if case.get("save_params") and rank == 0:
+        out.update({"param/" + n: p.numpy() for n, p in params.items()})
+    del det, opt, step
+    if rank == case.get("reference_rank", 0):
+        out.update(_against_single(case, batch, draws, params))
+    return out
+
+
+def _single_step(case, batch, draws):
+    """(metrics, parameters before, after) of the port's single-process step."""
+    from tf_eager_object_detection_tpu_torch.training.optimizer import make_optimizer
+    from tf_eager_object_detection_tpu_torch.training.train_step import make_train_step
+
+    det = build_detector(case)
+    before = {n: p.detach().clone() for n, p in det.named_parameters()}
+    metrics = make_train_step(det, make_optimizer(det.cfg, det))(batch, draws)
+    return ({k: float(v) for k, v in metrics.items()}, before,
+            {n: p.detach().clone() for n, p in det.named_parameters()})
+
+
+def _against_single(case, batch, draws, params):
+    """The spatial step's updated `params` against the single-process step
+    at the global batch on the same weights and draws: that step's metrics,
+    each tensor's largest difference relative to its largest value (`gap`),
+    which tensors the step updates, and the difference of all the updates
+    relative to their norm (`gap_norm`)."""
+    import numpy as np
+
+    metrics, before, want = _single_step(case, batch, draws)
+    out = {"ref_metric/" + k: v for k, v in metrics.items()}
+    names = sorted(want)
+    out["names"] = np.asarray(names)
+    out["gap"] = np.asarray([float((params[n] - want[n]).abs().max())
+                             / (float(want[n].abs().max()) + 1e-8) for n in names])
+    out["updated"] = np.asarray([not bool((want[n] == before[n]).all()) for n in names])
+    update = sum(float((want[n] - before[n]).double().square().sum()) for n in names)
+    out["gap_norm"] = (sum(float((params[n] - want[n]).double().square().sum())
+                           for n in names) / update) ** 0.5
+    return out
+
+
+def _spatial_predict(case, groups, rank):
+    import torch
+
+    from tf_eager_object_detection_tpu_torch.parallel.spatial import make_spatial_predict
+
+    batch, _ = load_inputs(case["inputs"])
+    images, image_hw = batch[0], batch[1]
+    det = build_detector(case)
+    predict = make_spatial_predict(det, groups)
+    out = {}
+    for i in range(len(images)):
+        got = predict(images[i], image_hw[i])
+        out.update({f"got/{i}/{k}": torch.as_tensor(v).cpu().numpy()
+                    for k, v in got._asdict().items()})
+        if rank == case.get("reference_rank", 0):
+            want = det.predict(images[i], image_hw[i])
+            out.update({f"want/{i}/{k}": torch.as_tensor(v).cpu().numpy()
+                        for k, v in want._asdict().items()})
+    return out
+
+
+def _spatial_trainer(case, groups, rank):
+    import numpy as np
+
+    from tf_eager_object_detection_tpu_torch.training.trainer import Trainer
+
+    batch, _ = load_inputs(case["inputs"])
+    arrays = dict(zip(BATCH_KEYS, batch))
+    trainer = Trainer(build_detector(case), case["train_dir"], logging_every_n_steps=1,
+                      summary_every_n_steps=1000, saving_every_n_steps=1000,
+                      spatial_partition=groups.sp)
+    trainer.train_one_epoch(iter([arrays, arrays]), steps=2)
+    out = {"count": trainer.optimizer.count, "space": groups.sp, "batch": trainer.groups.dp}
+    try:
+        trainer.train_one_epoch(iter([{k: v[:1] for k, v in arrays.items()}]), steps=1)
+        out["refused"] = ""
+    except ValueError as exc:
+        out["refused"] = str(exc)
+    out["count_after"] = trainer.optimizer.count
+    trainer.close()
+    return out
+
+
+SPATIAL_CASES = {"step": _spatial_step, "predict": _spatial_predict, "trainer": _spatial_trainer}
+
+
+def _spatial(spec, rank, world):
+    import numpy as np
+
+    from tf_eager_object_detection_tpu_torch.parallel.spatial import make_spatial_groups
+
+    groups = make_spatial_groups(spec["sp"], timeout_s=spec.get("timeout_s",
+                                                                COLLECTIVE_TIMEOUT_S))
+    out = {}
+    for case in spec["cases"]:
+        t0 = time.perf_counter()
+        got = SPATIAL_CASES[case["kind"]](case, groups, rank)
+        got["case_seconds"] = time.perf_counter() - t0
+        out.update({f"{case['name']}/{k}": v for k, v in got.items()})
+    np.savez(os.path.join(spec["out"], f"rank{rank}.npz"), **out)
+
+
+MODES = {"step": _step, "trainer": _train_and_restore, "indivisible": _indivisible,
+         "spatial": _spatial}
 
 
 def main(spec_path: str, rank: int) -> None:

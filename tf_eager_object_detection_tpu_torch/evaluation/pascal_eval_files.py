@@ -6,9 +6,10 @@ batch per bucket) -> per-class decode, clip to the raw image, drop boxes
 with a side under `min_size`, and ONE NMS call over all foreground classes
 at once (the NMS kernel K1 on the card; JAX vmaps its NMS over the classes)
 -> a per-image score cap -> per-class `{cls}.txt` files in the VOC devkit's
-format (1-based coordinates). `data_parallel` / `devices` go to
-`batched_im_detect`; spatial partitioning is not ported yet (ROADMAP item
-8(c)).
+format (1-based coordinates). `data_parallel` / `devices` and
+`spatial_partition` go to `batched_im_detect`; under spatial partitioning
+every rank of the process group computes every image's detections and
+rank 0 alone writes the files.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tf_eager_object_detection_tpu_torch.core.boxes import clip_boxes, min_edge_mask
 from tf_eager_object_detection_tpu_torch.core.transforms import decode_boxes
@@ -88,15 +90,18 @@ def get_prediction_files(
     batch_size: int = 8,
     data_parallel: int = 0,
     devices: Optional[Sequence] = None,
+    spatial_partition: int = 0,
 ) -> List[str]:
     """Runs eval inference and writes per-class VOC result files; returns
     their paths. `eval_iterator` yields (image [Hp, Wp, 3], image_hw [2],
     scale, raw_h, raw_w) in the order of `image_ids`. `data_parallel` > 0
-    splits each batch over that many replicas (`batched_im_detect`)."""
+    splits each batch over that many replicas, `spatial_partition` > 1
+    each image's rows over the ranks of the process group
+    (`batched_im_detect`)."""
     cfg = detector.cfg
     per_image: List[List[np.ndarray] | None] = [None] * len(image_ids)
     for img_idx, item, (sm, deltas, rois, roi_valid) in batched_im_detect(
-        detector, eval_iterator, batch_size, data_parallel, devices
+        detector, eval_iterator, batch_size, data_parallel, devices, spatial_partition
     ):
         boxes_c, scores_c, valid_c = (t.cpu().numpy() for t in eval_post_process(
             sm, deltas, rois, roi_valid, float(item[3]), float(item[4]),
@@ -111,6 +116,8 @@ def get_prediction_files(
         dets = [np.concatenate([boxes_c[j][valid_c[j]], scores_c[j][valid_c[j], None]], axis=1)
                 for j in range(detector.num_classes - 1)]
         per_image[img_idx] = _cap_per_image(dets, max_objects_per_image)
+    if spatial_partition > 1 and dist.get_rank() != 0:
+        return [result_file_format.format(cls) for cls in class_names]
     return write_voc_detection_files(per_image, image_ids, class_names, result_file_format)
 
 

@@ -7,7 +7,9 @@ conv of a stack's first block. `SlimResNetBackbone` (FPN's
 after an explicit (1, 1) pad (VALID), identity shortcuts subsampled by
 `[::stride, ::stride]`, and each stack's pre-stride output as the lateral.
 Both: conv1 7x7/2 after an explicit (3, 3) zero pad, then a 3x3/2 max pool
-over a -inf pad of 1; every BatchNorm frozen. Submodules carry the keras/flax names
+over a -inf pad of 1; every BatchNorm frozen. Every layer that mixes rows
+is one of `models/layers.py`, so the extractors take row-sharded maps
+(`parallel/spatial.py`). Submodules carry the keras/flax names
 (`conv2_block1_1_conv`, ...) so the weight bridge is a name map. Public
 inputs and outputs are NHWC; the convolutions run in NCHW.
 
@@ -24,7 +26,13 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from tf_eager_object_detection_tpu_torch.models.layers import Conv2d, FrozenBatchNorm, SameConv2d
+from tf_eager_object_detection_tpu_torch.models.layers import (
+    Conv2d,
+    FrozenBatchNorm,
+    MaxPool2d,
+    SameConv2d,
+    subsample as subsample_rows,
+)
 
 __all__ = ["ResNetBackbone", "ResNetRoiHead", "SlimResNetBackbone", "RESNET_DEPTH_BLOCKS"]
 
@@ -43,7 +51,7 @@ def _bottleneck_forward(mod: nn.Module, x: torch.Tensor, prefix: str, conv_short
     def conv_bn(i, t):
         return getattr(mod, f"{prefix}_{i}_bn")(getattr(mod, f"{prefix}_{i}_conv")(t))
 
-    shortcut = conv_bn(0, x) if conv_shortcut else x[:, :, ::subsample, ::subsample]
+    shortcut = conv_bn(0, x) if conv_shortcut else subsample_rows(x, subsample)
     y = torch.relu(conv_bn(1, x))
     y = torch.relu(conv_bn(2, y))
     y = conv_bn(3, y)
@@ -80,7 +88,7 @@ def _add_slim_bottleneck(mod: nn.Module, prefix: str, in_ch: int, filters: int,
 def _add_stem(mod: nn.Module, dtype: torch.dtype) -> None:
     mod.conv1_conv = Conv2d(3, 64, 7, stride=2, padding=3, compute_dtype=dtype)
     mod.conv1_bn = FrozenBatchNorm(64)
-    mod.pool = nn.MaxPool2d(3, stride=2, padding=1)  # pads with -inf
+    mod.pool = MaxPool2d(3, stride=2, padding=1)  # pads with -inf
 
 
 def _stem_forward(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:

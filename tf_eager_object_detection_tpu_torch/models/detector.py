@@ -27,6 +27,16 @@ roi_softmax [B, R, C], roi_deltas [B, R, C, 4])`, `feature_grids(h, w)`
 (VGG16) sets `roi_dropout`, and `_detection_loss` draws the head's keep
 masks with the samplers' numbers. Serving never drops out.
 
+Spatial partitioning (`parallel/spatial.py`): a subclass runs its
+extractor through `_extract`. While `row_shard` is set (a `RowShard`, set
+by the spatial steps for the duration of a call), the images hold this
+rank's rows of each image, the extractor runs on them under the shard's
+halo exchanges (`models/layers.py::row_sharded`), and `_extract` returns
+its outputs gathered whole, so that everything after it (`feature_grids`
+of the global size, anchors, proposals, samplers, crops, heads) sees the
+whole map on every rank of the space group. `extractor_levels` is the
+number of stride-2 stages of the extractor.
+
 The config's `tpu_compute_dtype` ("float32" or "bfloat16"; anything else
 raises) is the detector's `compute_dtype`, the flax modules' `dtype`: with
 "bfloat16" the backbone, the neck, the RPN's first conv and the RoI heads'
@@ -56,6 +66,7 @@ from tf_eager_object_detection_tpu_torch.models.freeze import freeze_
 from tf_eager_object_detection_tpu_torch.models.layers import (
     FrozenBatchNorm,
     resolve_compute_dtype,
+    row_sharded,
 )
 from tf_eager_object_detection_tpu_torch.ops.losses import cls_loss, smooth_l1_loss
 from tf_eager_object_detection_tpu_torch.ops.prediction import Detections, post_ops_prediction
@@ -98,16 +109,19 @@ def read_image_file(path: str) -> np.ndarray:
         return np.asarray(Image.open(path).convert("RGB"))
 
 
-def test_one_image_impl(detector, img_path, preprocessing_type="caffe", image_format=None):
-    """Load + preprocess + predict one image file with `detector.predict`
-    (JAX `models/faster_rcnn.py::test_one_image_impl`, reference
-    base_faster_rcnn_model.py:267-277) -> (boxes [N, 4] on the raw image's
-    coordinates, labels [N], scores [N]) of the valid detections, numpy."""
+def test_one_image_impl(detector, img_path, preprocessing_type="caffe", image_format=None,
+                        predict=None):
+    """Load + preprocess + predict one image file with `detector.predict`,
+    or `predict(image, image_hw)` where given (JAX `predict_fn`, such as a
+    spatially partitioned one) (JAX `models/faster_rcnn.py::
+    test_one_image_impl`, reference base_faster_rcnn_model.py:267-277) ->
+    (boxes [N, 4] on the raw image's coordinates, labels [N], scores [N]) of
+    the valid detections, numpy."""
     from tf_eager_object_detection_tpu_torch.data.preprocessing import preprocess_eval_image
 
     padded, hw, scale, _, _ = preprocess_eval_image(
         read_image_file(img_path), detector.cfg, preprocessing_type, image_format=image_format)
-    det = detector.predict(padded, hw)
+    det = (predict or detector.predict)(padded, hw)
     v = det.valid.cpu().numpy()
     return (det.boxes.cpu().numpy()[v] / scale, det.labels.cpu().numpy()[v],
             det.scores.cpu().numpy()[v])
@@ -121,6 +135,9 @@ class ServingDetector(nn.Module):
     roi_dropout: tuple[float, int] | None = None
     # init std of the layers the flax modules initialize with a fixed normal
     _FIXED_INIT_STD: Dict[str, float] = {}
+    # this rank's rows of a spatially partitioned call (`_extract`), else None
+    row_shard = None
+    extractor_levels: int
 
     def __init__(self, backbone: str, config: Dict[str, Any], device):
         super().__init__()
@@ -185,6 +202,17 @@ class ServingDetector(nn.Module):
 
     def _detect(self, images: torch.Tensor, image_hw: torch.Tensor):
         raise NotImplementedError
+
+    def _extract(self, images: torch.Tensor):
+        """The extractor's outputs. Under `row_shard`, `images` holds this
+        rank's rows: the extractor runs on them and its outputs are
+        gathered whole (the gather's backward sums over the space group)."""
+        shard = self.row_shard
+        if shard is None:
+            return self.extractor(images)
+        with row_sharded(shard):
+            out = self.extractor(images)
+        return shard.gather(out)
 
     def test_one_image(self, img_path, preprocessing_type="caffe", image_format=None):
         """One image file -> its valid detections (`test_one_image_impl`)."""

@@ -73,6 +73,7 @@ class FasterRCNNDetector(ServingDetector):
         super().__init__(backbone, config, device)
         cfg = self.cfg
         self.stride = cfg["extractor_stride"]
+        self.extractor_levels = self.stride.bit_length() - 1  # log2 of the stride
         self.min_edge = float(self.stride)
         self.num_anchors = len(cfg["ratios"]) * len(cfg["scales"])
         self.anchor_base = generate_anchor_base(self.stride, cfg["ratios"], cfg["scales"])
@@ -115,12 +116,15 @@ class FasterRCNNDetector(ServingDetector):
     # ----------------------------------------------------------- shared path
     def _backbone_rpn(self, images: torch.Tensor):
         """-> (feats [B, h, w, 512 or 1024] in the compute dtype, score and bbox maps
-        float32). With `tpu_remat`, a training forward keeps no activation
-        of the extractor and recomputes them in the backward."""
+        float32), feats gathered whole under `row_shard`. With `tpu_remat`,
+        a training forward keeps no activation of the extractor and
+        recomputes them in the backward."""
         if self.cfg.get("tpu_remat", False) and torch.is_grad_enabled():
-            feats = checkpoint(self.extractor, images, use_reentrant=False)
+            # under spatial partitioning the recompute repeats the halo
+            # exchanges and the gather, in the same order on every rank
+            feats = checkpoint(self._extract, images, use_reentrant=False)
         else:
-            feats = self.extractor(images)
+            feats = self._extract(images)
         score_map, bbox_map = self.rpn_head(feats)
         return feats, score_map.float(), bbox_map.float()
 

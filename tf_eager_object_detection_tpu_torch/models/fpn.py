@@ -169,6 +169,7 @@ class FPNDetector(ServingDetector):
         self.base_sizes = list(cfg["base_anchor_size_list"])
         self.min_level = cfg["min_level"]
         self.max_level = cfg["max_level"]
+        self.extractor_levels = 5  # c5 at stride 32, both backbone styles
         self.num_anchors = len(cfg["ratios"]) * len(cfg["scales"])
         dims = cfg["top_down_dims"]
 
@@ -228,8 +229,9 @@ class FPNDetector(ServingDetector):
 
     # ----------------------------------------------------------- shared path
     def _backbone_neck_rpn(self, images: torch.Tensor):
-        """-> (p_list NHWC per level, score maps [B, h, w, 2A], bbox maps [B, h, w, 4A])."""
-        p_list = self.neck(self.extractor(images))
+        """-> (p_list NHWC per level, score maps [B, h, w, 2A], bbox maps [B, h, w, 4A]).
+        Under `row_shard`, c2..c5 are gathered whole before the neck."""
+        p_list = self.neck(self._extract(images))
         score_list, bbox_list = [], []
         for p in p_list:
             s, b = self.rpn_head(p)

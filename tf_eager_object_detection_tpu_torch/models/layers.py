@@ -12,18 +12,30 @@ upcast, as flax promotes a layer that has no `dtype`. `FrozenBatchNorm`
 computes its scale and shift in float32 and applies them in the input's
 dtype. `max_pool_same` is keras 'SAME' max pooling (the extra row and
 column of an odd side on the bottom and right, padded with -inf).
+
+Row sharding (`parallel/spatial.py`): inside `row_sharded(shard)` the
+layers that mix rows (`SameConv2d` and `Conv2d` with a window or a stride
+along the rows, `MaxPool2d`, `max_pool_same`, `subsample`) take a rank's
+rows of a map whose rows are split over ranks, and return its rows of the
+output. Each reads its padding from the map's global height (`shard.height`
+of its local rows), not from the local shard, and convolves the rows that
+its output rows read, halo included (`shard.window`: rows of other ranks
+fetched from them, the padding's zeros or -inf outside the map). Outside
+the context, nothing changes.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Conv2d", "FrozenBatchNorm", "Linear", "SameConv2d", "max_pool_same",
-           "resolve_compute_dtype"]
+__all__ = ["Conv2d", "FrozenBatchNorm", "Linear", "MaxPool2d", "SameConv2d", "max_pool_same",
+           "resolve_compute_dtype", "row_sharded", "subsample"]
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -65,11 +77,58 @@ def _same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+_ROW_SHARD: contextvars.ContextVar = contextvars.ContextVar("row_shard", default=None)
+
+
+@contextlib.contextmanager
+def row_sharded(shard):
+    """Run the enclosed layers on a rank's rows of row-sharded maps
+    (`shard`: a `parallel/spatial.py::RowShard`)."""
+    token = _ROW_SHARD.set(shard)
+    try:
+        yield
+    finally:
+        _ROW_SHARD.reset(token)
+
+
+def _rows_read(x: torch.Tensor, kernel: int, stride: int, top, out_height, fill=0.0):
+    """Under `row_sharded`, for a window of `kernel` rows at `stride`: this
+    rank's rows of x [B, C, h, W] with the halo rows its output rows read
+    (the global padding included) -> (rows, True). `top(H)` and
+    `out_height(H)` are the padding above and the output rows of a map of
+    H rows. Otherwise, and for a 1x1 window at stride 1, (x, False)."""
+    shard = _ROW_SHARD.get()
+    if shard is None or (kernel == 1 and stride == 1):
+        return x, False
+    height = shard.height(x.shape[-2])
+    return shard.window(x, height, out_height(height), kernel, stride, top(height), fill), True
+
+
+def subsample(x: torch.Tensor, step: int) -> torch.Tensor:
+    """Every `step`-th row and column of [B, C, H, W], from the first."""
+    if step == 1:
+        return x
+    x, _ = _rows_read(x, 1, step, lambda h: 0, lambda h: -(-h // step))
+    return x[:, :, ::step, ::step]
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """nn.MaxPool2d (-inf padding) that takes row-sharded maps."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, s, p = self.kernel_size, self.stride, self.padding
+        x, sharded = _rows_read(x, k, s, lambda h: p, lambda h: (h + 2 * p - k) // s + 1,
+                                float("-inf"))
+        return F.max_pool2d(x, k, s, (0, p) if sharded else p)
+
+
 def max_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
     """Max pool of [B, C, H, W] with TF 'SAME' padding: -inf where the
     window passes the edge, the odd one on the bottom / right, unlike torch's
     symmetric pooling padding."""
-    top, bottom = _same_padding(x.shape[-2], window, stride)
+    x, sharded = _rows_read(x, window, stride, lambda h: _same_padding(h, window, stride)[0],
+                            lambda h: -(-h // stride), float("-inf"))
+    top, bottom = (0, 0) if sharded else _same_padding(x.shape[-2], window, stride)
     left, right = _same_padding(x.shape[-1], window, stride)
     if top or bottom or left or right:
         x = F.pad(x, (left, right, top, bottom), value=float("-inf"))
@@ -90,7 +149,9 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w, b = self._cast(x)
-        return F.conv2d(x, w, b, self.stride, self.padding)
+        (k, _), (s, _), (p, q) = self.kernel_size, self.stride, self.padding
+        x, sharded = _rows_read(x, k, s, lambda h: p, lambda h: (h + 2 * p - k) // s + 1)
+        return F.conv2d(x, w, b, self.stride, (0, q) if sharded else self.padding)
 
 
 class SameConv2d(Conv2d):
@@ -108,7 +169,9 @@ class SameConv2d(Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w, b = self._cast(x)
         (kh, kw), (sh, sw) = self.kernel_size, self.stride
-        top, bottom = _same_padding(x.shape[-2], kh, sh)
+        x, sharded = _rows_read(x, kh, sh, lambda h: _same_padding(h, kh, sh)[0],
+                                lambda h: -(-h // sh))
+        top, bottom = (0, 0) if sharded else _same_padding(x.shape[-2], kh, sh)
         left, right = _same_padding(x.shape[-1], kw, sw)
         if top == bottom and left == right:
             return F.conv2d(x, w, b, self.stride, (top, left))

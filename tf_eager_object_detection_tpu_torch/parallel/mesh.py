@@ -34,8 +34,7 @@ from torch.nn.parallel import DistributedDataParallel
 
 from tf_eager_object_detection_tpu_torch.ops.sampling import TrainDraws
 
-__all__ = ["make_parallel_train_step", "replicate", "eval_devices", "check_eval_data_parallel",
-           "refuse_spatial_partition"]
+__all__ = ["make_parallel_train_step", "replicate", "eval_devices", "check_eval_data_parallel"]
 
 
 class _Loss(nn.Module):
@@ -50,19 +49,23 @@ class _Loss(nn.Module):
         return self.detector.loss_fn(images, image_hw, gt_boxes, gt_mask, gt_labels, draws)
 
 
-def make_parallel_train_step(detector, optimizer, process_group=None):
+def make_parallel_train_step(detector, optimizer, process_group=None, batch_shard=None):
     """-> step(batch, draws=None) -> metrics, the data-parallel
     `training/train_step.py::make_train_step`.
 
     batch = this rank's rows (images, image_hw, gt_boxes, gt_mask,
     gt_labels), b images; `draws` is the global batch's `TrainDraws` (N * b
     images), or a `torch.Generator` to sample them from, or None for the
-    detector's own generator. The metrics are this rank's; averaging them
-    over the ranks is the caller's (the trainer does so where it reads
-    them). Building the step broadcasts rank 0's parameters and buffers
-    to every rank of `process_group` (default: the default group)."""
+    detector's own generator. `batch_shard` = (index, N): this rank's rows
+    are the index-th of the N equal shares of the global batch (default:
+    the rank and the size of `process_group`; `parallel/spatial.py` gives
+    the sp ranks of a batch group one index). The metrics are this rank's;
+    averaging them over the ranks is the caller's (the trainer does so
+    where it reads them). Building the step broadcasts rank 0's parameters
+    and buffers to every rank of `process_group` (default: the default
+    group)."""
     group = process_group if process_group is not None else dist.group.WORLD
-    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    rank, world = batch_shard or (dist.get_rank(group), dist.get_world_size(group))
     device = detector.device
     ddp = DistributedDataParallel(
         _Loss(detector),
@@ -113,14 +116,6 @@ def check_eval_data_parallel(batch_size: int, data_parallel: int, device=None) -
         raise ValueError(f"batch_size={batch_size} not divisible by data_parallel={data_parallel}")
     if data_parallel and device is not None:
         eval_devices(device, data_parallel)
-
-
-def refuse_spatial_partition(spatial_partition: int) -> None:
-    """Spatial partitioning (JAX `parallel/spatial.py`) is not ported: any
-    value above 1 raises."""
-    if int(spatial_partition) > 1:
-        raise NotImplementedError("--spatial_partition: spatial partitioning is not ported yet "
-                                  "(ROADMAP item 8(c))")
 
 
 def _canonical(device) -> torch.device:

@@ -10,8 +10,16 @@ CKPT is a checkpoint directory of the port's trainer or a params `.npz` in
 the JAX package's format. Runs on the card unless `--device cpu` is given.
 `--data_parallel N` splits each batch of `--batch_size` images over
 replicas of the detector on the first N GPUs (with `--device cpu`, N
-replicas on the CPU); `--spatial_partition` > 1 is not ported yet
-(ROADMAP item 8(c)).
+replicas on the CPU). `--spatial_partition N` (exclusive with it) shards
+each image's rows over N ranks, one process a GPU
+(`parallel/spatial.py`), and rank 0 writes the files and scores them:
+
+    torchrun --standalone --nproc_per_node=N \
+        -m tf_eager_object_detection_tpu_torch.scripts.eval_pascal CKPT --spatial_partition N ...
+
+Without torchrun's environment, with a world size that N does not divide,
+or with an image bucket whose height N does not divide, it refuses before
+joining (and `batched_im_detect` refuses a world size other than N).
 """
 
 import argparse
@@ -47,7 +55,8 @@ def parse_args(argv=None):
     p.add_argument("--data_parallel", type=int, default=0,
                    help="split each batch over this many replicas (0 = one device)")
     p.add_argument("--spatial_partition", type=int, default=0,
-                   help="not ported yet (ROADMAP item 8(c)); only 0 or 1 is accepted")
+                   help="shard each image's rows over N ranks (start with torchrun "
+                        "--standalone --nproc_per_node=N; exclusive with --data_parallel)")
     p.add_argument("--config_override", action="append", default=[], metavar="KEY=JSON",
                    help="override one config key (JSON value; repeatable)")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
@@ -57,22 +66,41 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    from tf_eager_object_detection_tpu_torch.parallel.mesh import (
-        check_eval_data_parallel,
-        refuse_spatial_partition,
-    )
-
-    refuse_spatial_partition(args.spatial_partition)
-    check_eval_data_parallel(args.batch_size, args.data_parallel, args.device)
     from tf_eager_object_detection_tpu_torch.config.config_factory import (
         apply_config_overrides,
         config_factory,
     )
-    from tf_eager_object_detection_tpu_torch.data.label_map import PASCAL_CLASSES
-    from tf_eager_object_detection_tpu_torch.evaluation.voc_eval import voc_eval
+    from tf_eager_object_detection_tpu_torch.parallel.mesh import check_eval_data_parallel
 
+    check_eval_data_parallel(args.batch_size, args.data_parallel, args.device)
     cfg = apply_config_overrides(dict(config_factory("pascal", args.model_type)),
                                  args.config_override)
+    spatial = args.spatial_partition > 1 and not args.use_local_result_files
+    if not spatial:
+        return _evaluate(args, cfg, args.device)
+    from tf_eager_object_detection_tpu_torch.parallel import multihost
+    from tf_eager_object_detection_tpu_torch.parallel.spatial import join
+
+    n = args.spatial_partition
+    if args.data_parallel:
+        raise ValueError("--data_parallel and --spatial_partition are exclusive")
+    heights = [h for h, _ in cfg["tpu_image_buckets"] if h % n]
+    if heights:
+        raise ValueError(f"image bucket heights {heights} not divisible by spatial_partition={n}")
+    device = join(n, args.device)
+    try:
+        return _evaluate(args, cfg, device)
+    finally:
+        multihost.shutdown()
+
+
+def _evaluate(args, cfg, device):
+    """Detections (unless --use_local_result_files), then, on rank 0 of a
+    spatial run and always otherwise, the per-class APs and the mAP."""
+    from tf_eager_object_detection_tpu_torch.data.label_map import PASCAL_CLASSES
+    from tf_eager_object_detection_tpu_torch.evaluation.voc_eval import voc_eval
+    from tf_eager_object_detection_tpu_torch.parallel.multihost import is_primary
+
     os.makedirs(args.result_dir, exist_ok=True)
     result_fmt = os.path.join(args.result_dir, "{:s}.txt")
 
@@ -89,7 +117,7 @@ def main(argv=None):
         from tf_eager_object_detection_tpu_torch.models.model_factory import model_factory
         from tf_eager_object_detection_tpu_torch.ref_import.cli import load_checkpoint_params
 
-        detector = model_factory(args.model_type, args.backbone, cfg, device=args.device)
+        detector = model_factory(args.model_type, args.backbone, cfg, device=device)
         image_format = load_checkpoint_params(detector, args.ckpt, args)
         if args.dataset_type == "tf":
             if not args.tf_records_glob:
@@ -111,7 +139,10 @@ def main(argv=None):
             max_objects_per_image=cfg["max_objects_per_image"],
             batch_size=args.batch_size,
             data_parallel=args.data_parallel,
+            spatial_partition=args.spatial_partition,
         )
+    if not is_primary():
+        return None
 
     annopath = os.path.join(args.root_path, "Annotations", "{:s}.xml")
     imageset = os.path.join(args.root_path, "ImageSets", "Main", f"{args.mode}.txt")

@@ -10,8 +10,15 @@ the JAX package's format, or with `--use_tf_faster_rcnn_model`,
 (`ref_import/cli.py`). The image is read as JAX reads it: cv2, else PIL
 (`models/detector.py::read_image_file`), so formats cv2 cannot decode
 (TGA, PCX, ICO, ...) are read too; the overlay reads it with PIL. Runs on
-the card unless `--device cpu` is given. `--spatial_partition` > 1 is not
-ported yet (ROADMAP item 8(c)).
+the card unless `--device cpu` is given. `--spatial_partition N` shards
+the image's rows over N ranks, one process a GPU (`parallel/spatial.py`),
+and rank 0 prints and draws the detections, which equal the plain run's:
+
+    torchrun --standalone --nproc_per_node=N \
+        -m tf_eager_object_detection_tpu_torch.scripts.infer CKPT image.jpg --spatial_partition N
+
+Without torchrun's environment, or with a world size that N does not
+divide, it refuses before joining.
 """
 
 import argparse
@@ -35,27 +42,50 @@ def main(argv=None):
     p.add_argument("--config_override", action="append", default=[], metavar="KEY=JSON",
                    help="override one config key (JSON value; repeatable)")
     p.add_argument("--spatial_partition", type=int, default=1,
-                   help="not ported yet (ROADMAP item 8(c)); only 1 is accepted")
+                   help="shard the image's rows over N ranks (start with torchrun "
+                        "--standalone --nproc_per_node=N)")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
     add_import_flags(p)
     args = p.parse_args(argv)
-    from tf_eager_object_detection_tpu_torch.parallel.mesh import refuse_spatial_partition
+    if args.spatial_partition <= 1:
+        return _infer(args, args.device, None)
+    from tf_eager_object_detection_tpu_torch.parallel import multihost, spatial
 
-    refuse_spatial_partition(args.spatial_partition)
+    device = spatial.join(args.spatial_partition, args.device)
+    try:
+        return _infer(args, device, args.spatial_partition)
+    finally:
+        multihost.shutdown()
 
+
+def _infer(args, device, spatial_partition):
+    """Detect, then print and draw on rank 0 (the only rank without a group)."""
     from tf_eager_object_detection_tpu_torch.config.config_factory import (
         apply_config_overrides,
         config_factory,
     )
     from tf_eager_object_detection_tpu_torch.data.label_map import PASCAL_CLASSES
+    from tf_eager_object_detection_tpu_torch.models.detector import test_one_image_impl
     from tf_eager_object_detection_tpu_torch.models.model_factory import model_factory
     from tf_eager_object_detection_tpu_torch.ref_import.cli import load_checkpoint_params
 
     cfg = apply_config_overrides(dict(config_factory(args.data_type, args.model_type)),
                                  args.config_override)
-    det = model_factory(args.model_type, args.backbone, cfg, device=args.device)
+    det = model_factory(args.model_type, args.backbone, cfg, device=device)
     image_format = load_checkpoint_params(det, args.ckpt, args)
-    boxes, labels, scores = det.test_one_image(args.image, image_format=image_format)
+    predict = None
+    if spatial_partition:
+        from tf_eager_object_detection_tpu_torch.parallel.multihost import is_primary
+        from tf_eager_object_detection_tpu_torch.parallel.spatial import (
+            make_spatial_groups,
+            make_spatial_predict,
+        )
+
+        predict = make_spatial_predict(det, make_spatial_groups(spatial_partition))
+    boxes, labels, scores = test_one_image_impl(det, args.image, image_format=image_format,
+                                                predict=predict)
+    if spatial_partition and not is_primary():
+        return
     keep = scores >= args.score_threshold
     boxes, labels, scores = boxes[keep], labels[keep], scores[keep]
     names = ({i + 1: n for i, n in enumerate(PASCAL_CLASSES)} if args.data_type == "pascal"

@@ -29,8 +29,17 @@ torchrun (without torchrun's environment it trains as a group of one
 process); `--multihost` joins over the coordinator flags (each process's
 GPU is `cuda:$LOCAL_RANK`, 0 by default), or from torchrun's environment
 (`torchrun --nnodes ...`). Only rank 0 logs and writes summaries; rank 0
-writes the checkpoints. `--spatial_partition` > 1 is not ported yet
-(ROADMAP item 8(c)).
+writes the checkpoints.
+
+Spatial partitioning, each image's rows sharded over N ranks
+(`parallel/spatial.py`), the world size W a multiple of N, the global
+batch `--batch_size` times W // N:
+
+    torchrun --standalone --nproc_per_node=W \
+        -m tf_eager_object_detection_tpu_torch.scripts.train --spatial_partition N ...
+
+Without torchrun's environment, or where N does not divide W, it refuses
+before joining; with `--multihost` it refuses, as JAX does.
 """
 
 import argparse
@@ -86,21 +95,30 @@ def parse_args(argv=None):
     p.add_argument("--process_id", type=int, default=None,
                    help="with --multihost: this process's rank")
     p.add_argument("--spatial_partition", type=int, default=1,
-                   help="not ported yet (ROADMAP item 8(c)); only 1 is accepted")
+                   help="shard each image's rows over N ranks (start with torchrun "
+                        "--standalone --nproc_per_node=W, W a multiple of N)")
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
     return p.parse_args(argv)
 
 
 def _join(args) -> tuple:
-    """(device, world size): join the process group where a data-parallel
-    flag asks for it. Every refusal comes before the group is joined."""
-    from tf_eager_object_detection_tpu_torch.parallel.mesh import refuse_spatial_partition
-
-    refuse_spatial_partition(args.spatial_partition)
+    """(device, number of batch shares): join the process group where a
+    data-parallel or spatial flag asks for it; the global batch is the
+    per-device batch times the shares (the world size, or its batch groups
+    under spatial partitioning). Every refusal comes before the group is
+    joined."""
     coordinated = [args.coordinator_address, args.num_processes, args.process_id]
     if any(v is not None for v in coordinated) and not args.multihost:
         raise SystemExit("--coordinator_address, --num_processes and --process_id go with "
                          "--multihost")
+    if args.spatial_partition > 1:
+        if args.multihost:
+            raise SystemExit("--spatial_partition with --multihost is not supported: spatial "
+                             "partitioning targets one host with more GPUs than images")
+        from tf_eager_object_detection_tpu_torch.parallel import multihost, spatial
+
+        device = spatial.join(args.spatial_partition, args.device)
+        return device, multihost.rank_and_world()[1] // args.spatial_partition
     if not (args.data_parallel or args.multihost):
         return args.device, 1
     if args.multihost and args.coordinator_address is None and "RANK" not in os.environ:
@@ -116,17 +134,17 @@ def _join(args) -> tuple:
 
 def main(argv=None):
     args = parse_args(argv)
-    device, world = _join(args)
+    device, shares = _join(args)
     try:
-        return _train(args, device, world)
+        return _train(args, device, shares)
     finally:
-        if args.data_parallel or args.multihost:
+        if args.data_parallel or args.multihost or args.spatial_partition > 1:
             from tf_eager_object_detection_tpu_torch.parallel.multihost import shutdown
 
             shutdown()
 
 
-def _train(args, device, world):
+def _train(args, device, shares):
     from tf_eager_object_detection_tpu_torch.config.config_factory import (
         apply_config_overrides,
         config_factory,
@@ -150,7 +168,7 @@ def _train(args, device, world):
     data_cfg = {
         "model_config": cfg,
         # the global batch; each rank trains on its rows
-        "batch_size": cfg["tpu_train_batch_size_per_device"] * world,
+        "batch_size": cfg["tpu_train_batch_size_per_device"] * shares,
         "preprocessing_type": args.preprocessing_type,
         "seed": args.seed,
     }
@@ -175,6 +193,7 @@ def _train(args, device, world):
         backbone_weights=args.backbone_weights,
         data_parallel=args.data_parallel,
         multihost=args.multihost,
+        spatial_partition=args.spatial_partition,
     )
     trainer.train(batches, args.epochs or cfg["epochs"], args.steps_per_epoch)
 

@@ -26,7 +26,19 @@ the metrics over the ranks, so that rank 0 prints and writes the global
 batch's losses; only rank 0 prints, writes the metric events and the
 overlays (its `predict` runs on the detector itself). Every rank takes
 part in a checkpoint save and restore (`CheckpointManager(distributed=
-True)`). Spatial partitioning is not ported yet (ROADMAP item 8(c)).
+True)`).
+
+`spatial_partition=N` > 1 trains over the default group as dp = W // N
+batch groups of N ranks that share each image's rows
+(`parallel/spatial.py`): every rank is fed the global batch stream, and
+the spatial step takes the rows of its batch index and, of their images,
+the rows of its space index. It refuses a world size that N does not
+divide (before any collective), a global batch that dp does not divide
+and an image height that N does not divide (at the step, on every rank,
+before its first collective), and, as JAX, `multihost`. The metrics are
+averaged over the batch group (the ranks of a space group compute the
+same ones); the overlays' `predict` runs on rank 0 alone, on the whole
+image, as JAX's does.
 """
 
 from __future__ import annotations
@@ -41,11 +53,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tf_eager_object_detection_tpu_torch.parallel.mesh import (
-    make_parallel_train_step,
-    refuse_spatial_partition,
-)
+from tf_eager_object_detection_tpu_torch.parallel.mesh import make_parallel_train_step
 from tf_eager_object_detection_tpu_torch.parallel.multihost import local_batch_slice
+from tf_eager_object_detection_tpu_torch.parallel.spatial import (
+    make_spatial_groups,
+    make_spatial_train_step,
+)
 from tf_eager_object_detection_tpu_torch.training.checkpoints import CheckpointManager
 from tf_eager_object_detection_tpu_torch.training.metrics import MetricWriter
 from tf_eager_object_detection_tpu_torch.training.optimizer import make_optimizer
@@ -131,12 +144,18 @@ class Trainer:
         takes precedence over both. `draws(step)` -> the `TrainDraws` of the
         1-based step (of the global batch under data parallelism), for a
         caller that must fix them (a parity test)."""
-        refuse_spatial_partition(spatial_partition)
-        self.parallel = bool(data_parallel or multihost)
+        spatial = int(spatial_partition) > 1
+        if spatial and multihost:
+            raise ValueError("spatial_partition with multihost is not supported: spatial "
+                             "partitioning targets one host with more GPUs than images")
+        self.parallel = bool(data_parallel or multihost or spatial)
         if self.parallel and not dist.is_initialized():
-            raise RuntimeError("data_parallel / multihost train over the default process "
-                               "group: call parallel.multihost.initialize first")
+            raise RuntimeError("data_parallel / multihost / spatial_partition train over the "
+                               "default process group: call parallel.multihost.initialize "
+                               "first (launch with torchrun --standalone --nproc_per_node N)")
         self.rank, self.world = (dist.get_rank(), dist.get_world_size()) if self.parallel else (0, 1)
+        # refuses a world size that spatial_partition does not divide
+        self.groups = make_spatial_groups(int(spatial_partition)) if spatial else None
         self.is_primary = self.rank == 0
         self.det = detector
         detector.init_params(seed)
@@ -145,7 +164,9 @@ class Trainer:
 
             load_backbone_weights(detector, backbone_weights)
         self.optimizer = make_optimizer(detector.cfg, detector)
-        if self.parallel:
+        if spatial:
+            self.step_fn = make_spatial_train_step(detector, self.optimizer, self.groups)
+        elif self.parallel:
             self.step_fn = make_parallel_train_step(detector, self.optimizer)
         else:
             self.step_fn = make_train_step(detector, self.optimizer)
@@ -173,21 +194,26 @@ class Trainer:
     def _step(self, batch: dict, step: int) -> dict:
         """One step on `batch`: under data parallelism the global batch, of
         which this rank takes its rows (the step samples or slices the
-        global batch's draws)."""
+        global batch's draws); under spatial partitioning the spatial step
+        takes them."""
         draws = self.draws(step) if self.draws is not None else self.generator
+        if self.groups is not None:
+            return self.step_fn(tuple(np.asarray(batch[k]) for k in _BATCH_KEYS), draws)
         if self.parallel:
             lo, hi = local_batch_slice(len(batch["images"]), self.rank, self.world)
             batch = {k: np.asarray(batch[k])[lo:hi] for k in _BATCH_KEYS}
         return self.step_fn(self._to_device(batch), draws)
 
     def _mean_over_ranks(self, metrics: dict) -> dict:
-        """The metrics averaged over the ranks: one all_reduce, which every
-        rank makes at the same steps."""
+        """The metrics averaged over the ranks (over a batch group under
+        spatial partitioning): one all_reduce, which every rank makes at the
+        same steps."""
         if not self.parallel:
             return metrics
         vals = torch.stack([v.float() for v in metrics.values()])
-        dist.all_reduce(vals)
-        return dict(zip(metrics, vals / self.world))
+        group, n = (self.groups.batch, self.groups.dp) if self.groups else (None, self.world)
+        dist.all_reduce(vals, group=group)
+        return dict(zip(metrics, vals / n))
 
     def train_one_epoch(self, batches: Iterator[dict], steps: Optional[int] = None):
         t_start = time.time()
